@@ -1,0 +1,202 @@
+"""CUDA kernel for Hopper: dense × bitmap-compressed-sparse product (EIM).
+
+Replaces ``repro/kernels/bitmap_spmm.py:bitmap_spmm``, the Pallas TPU
+kernel that carries every packed projection and the LM head of the
+serving decode step.  The source is ``csrc/bitmap_spmm.cu`` (a plain C
+entry point): it is compiled with ``nvcc`` for ``sm_90a`` at first use
+into ``_build/`` (named by a hash of the source and flags) and loaded
+with ``ctypes``.
+
+Bound: at decode M (1..8 rows) each weight byte feeds at most eight
+multiply-adds, so the kernel is bound by the compressed weight bytes
+(bitmap + values + row starts) it streams from device memory, not by
+arithmetic.  The design reads every weight byte once per 8 rows of X,
+copies each tile's values to shared memory with all its loads in flight
+at once (``cp.async``), and splits K across blocks so that a decode
+step's narrow outputs still fill the card; the wrapper picks the split
+from the card's SM count (see the source's header for the rest).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.sparse.format import BitmapWeight
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "bitmap_spmm.cu"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_TYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass
+class Build:
+    path: pathlib.Path
+    log: str          # nvcc / ptxas output (registers, shared memory, spills)
+    seconds: float    # 0.0 when the library was already built
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the bitmap_spmm kernel")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> Build:
+    """Compile ``csrc/bitmap_spmm.cu`` once per source hash."""
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"bitmap_spmm-{digest}.so"
+    if out.exists():
+        return Build(out, "", 0.0)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
+    os.replace(tmp, out)   # atomic: a concurrent build never sees a partial
+    return Build(out, log, seconds)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build().path))
+    fn = lib.bitmap_spmm_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k_splits(kt: int, nt: int, m: int, sms: int) -> int:
+    """How many blocks share the K tiles of one (column tile, 8-row
+    block): enough for about four blocks per SM (two run at once, the
+    rest queue behind them), at most one per K tile.  More splits mean
+    more float32 partial sums to add."""
+    blocks = nt * -(-m // 8)
+    return max(1, min(kt, -(-4 * sms // blocks)))
+
+
+def _check(x: torch.Tensor, w: BitmapWeight) -> Tuple[int, int, int, int]:
+    if not x.is_cuda:
+        raise ValueError(f"bitmap_spmm kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dim() != 2 or x.shape[0] > 8 * 65535:   # 8-row blocks on grid z
+        raise ValueError(f"x must be (M, K) with M <= {8 * 65535}, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _TYPE_FLAG or w.values.dtype not in _TYPE_FLAG:
+        raise TypeError(f"x and values must be float32 or bfloat16, got "
+                        f"{x.dtype} and {w.values.dtype}")
+    if w.packed_bits.dtype != torch.uint8 or w.row_start.dtype != torch.int32:
+        raise TypeError("packed_bits must be uint8 and row_start int32")
+    if w.values.dim() != 3:
+        raise ValueError(f"one (K, N) matrix expected, got values of shape "
+                         f"{tuple(w.values.shape)} (slice a stacked weight)")
+    for name, t in (("x", x), ("packed_bits", w.packed_bits),
+                    ("values", w.values), ("row_start", w.row_start)):
+        if t.device != x.device:
+            raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    k, n = w.shape
+    bk, bn = w.block
+    kt, nt = w.packed_bits.shape[:2]
+    if x.shape[1] != k:
+        raise ValueError(f"x has K={x.shape[1]}, W is {w.shape}")
+    if bn % 8 or not (1 <= bk <= 128 and 8 <= bn <= 128):
+        raise ValueError(f"block {w.block}: need BK <= 128, 8 <= BN <= 128, "
+                         f"BN % 8 == 0")
+    if kt * bk != k or nt * bn != n:
+        raise ValueError(f"tile grid {(kt, nt)} x block {w.block} does not "
+                         f"cover {w.shape}")
+    if tuple(w.packed_bits.shape) != (kt, nt, bk, bn // 8) or tuple(
+            w.row_start.shape) != (kt, nt, bk) or tuple(
+            w.values.shape[:2]) != (kt, nt):
+        raise ValueError("packed_bits / values / row_start shapes disagree")
+    return kt, nt, bk, bn
+
+
+def bitmap_spmm(x: torch.Tensor, w: BitmapWeight,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ W`` on the card: x (M, K) float32 or bfloat16 -> (M, N) in
+    ``out_dtype`` (default ``x.dtype``).  Launches the CUDA kernel on the
+    current stream (no synchronisation) or raises."""
+    kt, nt, bk, bn = _check(x, w)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in _TYPE_FLAG:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    m = x.shape[0]
+    out = torch.empty((m, nt * bn), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    splits = k_splits(kt, nt, m, _sm_count(x.device))
+    partial = (torch.empty((splits, m, nt * bn), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    fn = _library().bitmap_spmm_launch
+    rc = fn(x.data_ptr(), w.packed_bits.data_ptr(), w.values.data_ptr(),
+            w.row_start.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None, m, kt, nt,
+            bk, bn, w.budget, splits, _TYPE_FLAG[x.dtype],
+            _TYPE_FLAG[w.values.dtype], _TYPE_FLAG[out_dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bitmap_spmm launch failed: CUDA error {rc}")
+    LAUNCHES["bitmap_spmm"] += 1
+    return out
+
+
+def hbm_traffic_model(x_shape: Tuple[int, int], w: BitmapWeight,
+                      bm: int = 128, itemsize: int = 2) -> dict:
+    """Analytic HBM bytes of one bitmap_spmm call vs its dense equivalent
+    (a copy of the reference's model: activations re-fetched once per
+    output-column block, weights once per output-row block, outputs
+    written once)."""
+    m, k = x_shape
+    _, n = w.shape
+    nt = n // w.block[1]
+    mt = max(1, -(-m // bm))
+    x_bytes = m * k * itemsize * nt
+    out_bytes = m * n * itemsize
+    w_sparse = w.hbm_bytes * mt
+    w_dense = w.dense_bytes * mt
+    return {
+        "sparse_bytes": x_bytes + out_bytes + w_sparse,
+        "dense_bytes": x_bytes + out_bytes + w_dense,
+        "weight_compression": w.compression,
+        "components": {
+            "x_bytes": x_bytes,
+            "out_bytes": out_bytes,
+            "w_sparse_bytes": w_sparse,
+            "w_dense_bytes": w_dense,
+            "col_blocks": nt,
+            "row_blocks": mt,
+        },
+    }

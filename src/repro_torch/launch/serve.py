@@ -1,0 +1,103 @@
+"""Serving CLI of the port: seeded Poisson arrivals into ``ServeEngine``.
+
+Runs on the card by default; ``--device cpu`` takes the plain PyTorch
+path (the kernels' plain versions):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --smoke --sparsity 0.5 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.serve import ServeEngine, poisson_trace
+
+
+def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
+                requests: int = 8, rate: float = 0.5, max_len: int = 128,
+                max_new: tuple = (8, 24), sparsity: float = 0.0,
+                head_sparsity: float | None = None, seed: int = 0,
+                stream_weights: bool = True, temperature: float = 0.0,
+                top_k: int = 0, device: str | None = None,
+                verbose: bool = True) -> dict:
+    """Continuous-batching mode: a seeded Poisson trace into the engine.
+
+    ``head_sparsity`` defaults to ``sparsity``; ``stream_weights=False``
+    serves a fully dense-dispatch baseline (stack and head).
+    ``temperature`` > 0 samples every request at that temperature
+    (top-``top_k`` truncated); default greedy.  ``device`` defaults to
+    ``cuda`` and raises without a card.
+    """
+    eng = ServeEngine.from_arch(arch, smoke=smoke, num_slots=slots,
+                                max_len=max_len, sparsity=sparsity,
+                                head_sparsity=head_sparsity, seed=seed,
+                                stream_weights=stream_weights,
+                                bitmap_head=stream_weights, top_k=top_k,
+                                device=device)
+    prompt_len = (1, min(4, max_len))
+    hi = max(1, min(max_new[1], max_len - prompt_len[1] + 1))
+    lo = max(1, min(max_new[0], hi))
+    trace = poisson_trace(requests, rate=rate, seed=seed,
+                          vocab_size=eng.cfg.vocab_size,
+                          prompt_len=prompt_len, max_new=(lo, hi))
+    for spec in trace:
+        eng.submit(**spec, temperature=temperature)
+    rep = eng.run()
+    if verbose:
+        ws = rep["weight_stream"]
+        print(f"device {eng.device} | weight stream: "
+              f"{ws['packed_tensors']} tensors packed, "
+              f"{ws['fallback_tensors']} dense fallbacks | modeled "
+              f"per-step weight bytes {ws['sparse_bytes_per_step']/1e6:.2f}"
+              f"MB vs dense {ws['dense_bytes_per_step']/1e6:.2f}MB "
+              f"({ws['reduction']:.2f}x)")
+        if rep["head_fallback"]:
+            print(f"  head fallback: {rep['head_fallback']}")
+        if sparsity > 0:
+            print(f"serving at {eng.weight_sparsity:.2%} weight sparsity "
+                  f"(head compression {eng.head_compression:.2f}x)")
+        lat, ftl = rep["latency_s"], rep["first_token_s"]
+        print(f"{rep['requests']} requests / {rep['generated_tokens']} "
+              f"tokens in {rep['wall_s']:.2f}s over {slots} slots "
+              f"(occupancy {rep['slot_occupancy']:.0%})")
+        print(f"  throughput {rep['tok_per_s']:.1f} tok/s | latency "
+              f"p50 {lat['p50'] * 1e3:.1f}ms p99 {lat['p99'] * 1e3:.1f}ms "
+              f"| first-token p50 {ftl['p50'] * 1e3:.1f}ms "
+              f"p99 {ftl['p99'] * 1e3:.1f}ms")
+    return rep
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="mean arrivals per decode step (Poisson)")
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--sparsity", type=float, default=0.0)
+    ap.add_argument("--head-sparsity", type=float, default=None,
+                    help="LM-head prune level before bitmap packing "
+                         "(default: --sparsity; 0 = exact dense head)")
+    ap.add_argument("--dense-stack", action="store_true",
+                    help="disable all bitmap weight streaming (stack and "
+                         "head): a fully dense-dispatch baseline")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="default top-k truncation for sampled requests")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    serve_trace(args.arch, smoke=args.smoke, slots=args.slots,
+                requests=args.requests, rate=args.rate,
+                max_len=args.max_len, sparsity=args.sparsity,
+                head_sparsity=args.head_sparsity,
+                stream_weights=not args.dense_stack,
+                temperature=args.temperature, top_k=args.top_k,
+                device=args.device, seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,424 @@
+"""Continuous-batching serving engine over the packed decode stack.
+
+Port of the core of ``repro/serve/engine.py``:
+
+* a request queue and a slot scheduler that admits new requests into
+  freed batch slots mid-flight (``serve/request.py``,
+  ``serve/scheduler.py``, copies of the reference's);
+* a slotted contiguous KV cache reused across request lifetimes
+  (``serve/cache.py``);
+* weights pruned once (``global_l1_prune``) and the whole decode stack
+  packed once into the paper's ``BitmapWeight`` format
+  (``serve/packed.py``), plus the per-tensor-pruned LM head: every
+  attention and MLP projection and the head go through
+  ``kernels/ops.bitmap_spmm`` on every decode step — on the card, the
+  hand-written CUDA kernel;
+* prompts are walked one position per decode step (teacher forcing),
+  and each slot decodes at its own position.
+
+It runs on ``cuda`` unless the caller passes ``device="cpu"`` (the CPU
+takes the kernels' plain versions); with no card and no explicit CPU it
+raises.  Paging, chunked prefill, prefix reuse, preemption, deadlines,
+load shedding, faults, telemetry and the traffic ledger are not ported
+yet, nor are MoE and recurrent (mamba / rwkv) blocks.
+"""
+from __future__ import annotations
+
+import math
+import time
+import warnings
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import build_serve_step
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import init_params, lm_head_weight
+from repro_torch.serve.cache import SlotKVCache
+from repro_torch.serve.errors import RequestRejected
+from repro_torch.serve.packed import PackedModel, choose_block, pack_model
+from repro_torch.serve.request import Request, RequestState
+from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.serve.trace import RollingStat
+from repro_torch.sparse.format import BitmapWeight, pack_bitmap
+from repro_torch.sparse.pruning import (global_l1_prune, per_tensor_prune,
+                                        sparsity_of, tree_map)
+
+
+def _head_block(d_model: int, vocab: int, cap: int = 128):
+    """Largest (BK, BN) bitmap tile that divides the head; BN % 8 == 0."""
+    return choose_block(d_model, vocab, cap)
+
+
+def pack_lm_head(params, cfg: ModelConfig, sparsity: float = 0.0,
+                 cache_dense: bool = False) -> Optional[BitmapWeight]:
+    """Prune (per tensor) and pack the (D, V) LM head once for serving."""
+    block = _head_block(cfg.d_model, cfg.vocab_size)
+    if block is None:
+        return None
+    w = lm_head_weight(params, cfg)
+    if sparsity > 0:
+        w = per_tensor_prune(w, sparsity)
+    return pack_bitmap(w.float().contiguous(), block=block,
+                       cache_dense=cache_dense)
+
+
+def _unported(cfg: ModelConfig) -> List[str]:
+    out = sorted({f"{b.mixer} mixer" for b in cfg.pattern
+                  if b.mixer != "attn"}
+                 | {f"{b.ffn} FFN" for b in cfg.pattern
+                    if b.ffn not in ("mlp", "none")})
+    if cfg.frontend == "frames":
+        out.append("frames frontend")
+    return out
+
+
+class ServeEngine:
+    """Continuous-batching decode over ``num_slots`` batch slots."""
+
+    def __init__(self, cfg: ModelConfig, *, num_slots: int = 4,
+                 max_len: int = 128, sparsity: float = 0.0, seed: int = 0,
+                 bitmap_head: bool = True,
+                 head_sparsity: Optional[float] = None,
+                 stream_weights: bool = True, top_k: int = 0,
+                 history: int = 512, params: Optional[Dict] = None,
+                 device: torch.device | str | None = None):
+        """``params``: the model's weights as a dict in the port's layout
+        (``repro_torch.bridge.params_from_numpy`` makes one from the JAX
+        package's); without it the engine draws its own from ``seed``.
+
+        ``head_sparsity``: the LM head is pruned per tensor to this level
+        (default ``sparsity``) before packing; 0.0 streams the exact dense
+        head through the bitmap path.  ``stream_weights=False`` serves a
+        dense-dispatch baseline.  ``top_k``: default top-k
+        truncation for sampled requests.  ``history``: retired requests
+        kept for inspection.
+        """
+        self.device = resolve_device(device)
+        missing = _unported(cfg)
+        if missing:
+            raise NotImplementedError(
+                f"{cfg.name}: {', '.join(missing)} not ported to the "
+                f"PyTorch engine yet")
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.sparsity = sparsity
+        self.fallbacks: Dict[str, str] = {}
+        self._warned: set = set()
+
+        t0 = time.perf_counter()
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(gen, cfg, device=self.device)
+        else:
+            params = tree_map(lambda _, t: t.to(self.device), params)
+        self._sync()
+        self.init_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        if sparsity > 0:
+            params = global_l1_prune(params, sparsity)
+        self.weight_sparsity = sparsity_of(params) if sparsity > 0 else 0.0
+        self.params = params
+        # a dense rendering beside each pack serves the plain version on
+        # the CPU; on the card it would hide the kernel, so none is made
+        cache_dense = self.device.type == "cpu"
+        self.stream_fallback: Optional[str] = None
+        if not stream_weights:
+            self.stream_fallback = "stream_weights=False"
+            self.fallbacks["stream"] = self.stream_fallback
+        self.packed: Optional[PackedModel] = (
+            pack_model(params, cache_dense=cache_dense)
+            if stream_weights else None)
+        self.head_sparsity = (sparsity if head_sparsity is None
+                              else head_sparsity)
+        self.head_fallback: Optional[str] = None
+        if bitmap_head:
+            self.lm_weight = pack_lm_head(params, cfg, self.head_sparsity,
+                                          cache_dense=cache_dense)
+            if self.lm_weight is None:
+                self.head_fallback = (
+                    f"no (BK, BN) tile divides (d_model={cfg.d_model}, "
+                    f"vocab={cfg.vocab_size}) with BN % 8 == 0; "
+                    f"head served dense")
+                self._warn_fallback("head", self.head_fallback,
+                                    f"bitmap LM head fell back to dense: "
+                                    f"{self.head_fallback}")
+        else:
+            self.lm_weight = None
+            self.head_fallback = "disabled (bitmap_head=False)"
+            self.fallbacks["head"] = self.head_fallback
+        self.head_compression = (self.lm_weight.compression
+                                 if self.lm_weight is not None else 1.0)
+        self._sync()
+        self.pack_s = time.perf_counter() - t0
+
+        self.scheduler = SlotScheduler(num_slots, history=history)
+        self.kv = SlotKVCache(cfg, num_slots, max_len, device=self.device)
+        self.top_k_default = top_k
+        self._step_fn = build_serve_step(cfg, top_k=top_k)
+
+        self._tok = np.zeros(num_slots, np.int64)
+        self._pos = np.zeros(num_slots, np.int64)
+        self._temp = np.zeros(num_slots, np.float32)
+        self._topk = np.zeros(num_slots, np.int32)
+        self._seeds = np.zeros(num_slots, np.int64)
+        self._use_sampling = False
+        self._use_topk_vec = False
+        self._seed = seed
+        self._warm = False
+        self._t0: Optional[float] = None
+        self._steps = 0
+        self.decode_steps = 0
+        self._slot_steps = 0
+        self._next_rid = 0
+        self._ingest: Dict[int, List[int]] = {}
+        self.history = history
+        self.requests: deque = deque(maxlen=max(1, history))
+        self._done = 0
+        self._gen_tokens = 0
+        self._h_lat = RollingStat(seed=1)
+        self._h_ftl = RollingStat(seed=2)
+        self._h_queue = RollingStat(seed=3)
+        self._h_prefill = RollingStat(seed=4)
+        self._h_fdec = RollingStat(seed=5)
+
+    @classmethod
+    def from_arch(cls, arch: str, smoke: bool = True, **kw) -> "ServeEngine":
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        return cls(cfg, **kw)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _warn_fallback(self, key: str, reason: str, message: str) -> None:
+        """Record a fallback reason (mirrored into ``report()``) and warn
+        it once per (key, reason) per engine."""
+        self.fallbacks[key] = reason
+        if (key, reason) not in self._warned:
+            self._warned.add((key, reason))
+            warnings.warn(message, stacklevel=3)
+
+    # ------------------------------------------------------------ clock ----
+
+    def _start_clock(self) -> None:
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+
+    def _wall(self) -> float:
+        return time.perf_counter() - self._t0
+
+    # ------------------------------------------------------------ intake ----
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int,
+               arrival: float = 0.0, temperature: float = 0.0,
+               seed: Optional[int] = None,
+               top_k: Optional[int] = None) -> Request:
+        """Queue one request.  ``temperature`` > 0 samples its tokens
+        from its own stream, seeded by ``seed`` (default: from the engine
+        seed and the rid); ``top_k`` truncates its sampling (None: the
+        engine default; 0: none).  Raises ``RequestRejected`` when the
+        request can never run: empty prompt, a budget below one token,
+        or prompt + budget beyond ``max_len``."""
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise RequestRejected("empty prompt")
+        if max_new_tokens < 1:
+            raise RequestRejected(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if len(prompt) + max_new_tokens - 1 > self.max_len:
+            raise RequestRejected(
+                f"prompt {len(prompt)} + {max_new_tokens} new tokens "
+                f"exceeds max_len {self.max_len}")
+        if any(not 0 <= t < self.cfg.vocab_size for t in prompt):
+            raise RequestRejected(
+                f"prompt token outside the vocabulary "
+                f"[0, {self.cfg.vocab_size})")
+        req = Request(rid=self._next_rid, prompt=prompt,
+                      max_new_tokens=max_new_tokens, arrival=arrival,
+                      temperature=temperature, seed=seed, top_k=top_k)
+        if temperature > 0:
+            self._use_sampling = True
+        if top_k is not None and top_k != self.top_k_default:
+            self._use_topk_vec = True
+        self._next_rid += 1
+        self.scheduler.submit(req)
+        return req
+
+    # ------------------------------------------------------------- loop ----
+
+    def _release_slot(self, slot: int, state: RequestState) -> Request:
+        req = self.scheduler.release(slot, state=state)
+        self._ingest.pop(slot, None)
+        self._pos[slot] = 0
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+        return req
+
+    def _retire(self, req: Request) -> None:
+        self._done += 1
+        self._gen_tokens += len(req.tokens)
+        self._h_lat.add(req.latency_s)
+        self._h_ftl.add(req.first_token_s)
+        self._h_queue.add(req.queue_s)
+        self._h_prefill.add(req.prefill_s)
+        self._h_fdec.add(req.first_decode_s)
+        self.requests.append(req)
+
+    def _decode(self):
+        tok = torch.from_numpy(self._tok[:, None]).to(self.device)
+        pos = torch.from_numpy(self._pos).to(self.device)
+        packed = self.packed.blocks if self.packed is not None else None
+        kw = dict(lm_weight=self.lm_weight, packed=packed)
+        if self._use_sampling:
+            kw.update(seeds=self._seeds, temperature=self._temp)
+            if self._use_topk_vec:
+                kw["top_ks"] = self._topk
+        return self._step_fn(self.params, self.kv.cache, tok, pos, **kw)
+
+    def warmup(self) -> None:
+        """Run one throwaway decode step before the
+        latency clock starts, so the first request's latency does not
+        include building the kernel library.  Slots are all idle here;
+        whatever the step writes at position 0 is zeroed on admission."""
+        if self._warm:
+            return
+        nxt, _, _ = self._decode()
+        nxt.cpu()
+        self._warm = True
+
+    def step(self) -> None:
+        """One engine step: admit due requests into free slots, then run
+        the full-batch decode step and route its tokens."""
+        self.warmup()
+        self._start_clock()
+        now = float(self._steps)
+        for r in self.scheduler.waiting:
+            if r.arrival <= now and r.t_due is None:
+                r.t_due = self._wall()
+        for slot, req in self.scheduler.admit(now):
+            ing = list(req.prompt)
+            self.kv.reset_slot(slot)
+            self._ingest[slot] = ing
+            self._pos[slot] = 0
+            self._tok[slot] = ing[0]
+            self._temp[slot] = req.temperature
+            self._topk[slot] = (req.top_k if req.top_k is not None
+                                else self.top_k_default)
+            self._seeds[slot] = (req.seed if req.seed is not None
+                                 else self._seed + 0x9e37 * (req.rid + 1))
+            req.admit_step = self._steps
+            if req.t_due is None:
+                req.t_due = self._wall()
+            req.t_admit = self._wall()
+            if len(ing) == 1:
+                req.t_prefill_done = req.t_admit
+
+        nxt, _, _ = self._decode()
+        nxt_host = nxt.cpu().numpy()
+        wall = self._wall()
+        self._slot_steps += len(self.scheduler.active)
+        for slot, req in list(self.scheduler.active.items()):
+            ing = self._ingest[slot]
+            p = int(self._pos[slot])
+            self._pos[slot] = p + 1
+            if p + 1 < len(ing):
+                # still consuming the prompt: teacher-force its next token
+                self._tok[slot] = ing[p + 1]
+                if p + 1 == len(ing) - 1:
+                    req.t_prefill_done = wall     # prompt cache resident
+                continue
+            t = int(nxt_host[slot])
+            req.tokens.append(t)
+            ing.append(t)
+            if req.t_first is None:
+                req.t_first = wall
+            self._tok[slot] = t
+            if (len(req.tokens) >= req.max_new_tokens
+                    or p + 1 >= self.max_len):
+                req.t_done = wall
+                req.done_step = self._steps
+                self._release_slot(slot, RequestState.DONE)
+                self._retire(req)
+        self.decode_steps += 1
+        self._steps += 1
+
+    def run(self) -> dict:
+        """Drive until every submitted request has drained; report."""
+        self.warmup()
+        self._start_clock()
+        while self.scheduler.has_work:
+            if not self.scheduler.active:
+                # idle: fast-forward the step clock to the next arrival
+                nxt = self.scheduler.next_arrival()
+                if nxt > self._steps:
+                    self._steps = int(math.ceil(nxt))
+            self.step()
+        return self.report()
+
+    # ---------------------------------------------------------- reports ----
+
+    def weight_stream_report(self) -> dict:
+        """Modeled per-step weight bytes, sparse vs dense, across the
+        decode stack and the LM head (the embedding lookup gathers B rows
+        and is not counted)."""
+        head_dense = self.cfg.d_model * self.cfg.vocab_size * 4
+        head_sparse = (self.lm_weight.hbm_bytes
+                       if self.lm_weight is not None else head_dense)
+        if self.packed is not None:
+            rep = self.packed.stream_report()
+        else:
+            dense = sum(t.numel() * t.element_size()
+                        for bd in self.params["blocks"].values()
+                        for tensors in bd.values()
+                        for t in tensors.values())
+            rep = {"sparse_bytes_per_step": dense,
+                   "dense_bytes_per_step": dense, "reduction": 1.0,
+                   "packed_tensors": 0, "fallback_tensors": 0,
+                   "activated_experts": None,
+                   "fallbacks": {"*": self.stream_fallback
+                                 or "stream_weights=False"}}
+        sparse = rep["sparse_bytes_per_step"] + head_sparse
+        dense = rep["dense_bytes_per_step"] + head_dense
+        return {**rep, "sparse_bytes_per_step": sparse,
+                "dense_bytes_per_step": dense,
+                "reduction": dense / sparse if sparse else 1.0}
+
+    def report(self) -> dict:
+        """Serving statistics, under the reference's ``report()`` key
+        names for every part this engine has."""
+        wall = self._wall() if self._t0 is not None else 0.0
+        reserved = self.kv.reserved_kv_bytes()
+        return {
+            "requests": self._done,
+            "retained_requests": len(self.requests),
+            "generated_tokens": self._gen_tokens,
+            "steps": self._steps,
+            "wall_s": wall,
+            "tok_per_s": (self._gen_tokens / wall if wall > 0
+                          else float("nan")),
+            "latency_s": self._h_lat.percentiles(),
+            "first_token_s": self._h_ftl.percentiles(),
+            "ttft": {"queue_s": self._h_queue.percentiles(),
+                     "prefill_s": self._h_prefill.percentiles(),
+                     "first_decode_s": self._h_fdec.percentiles()},
+            "slot_occupancy": (self._slot_steps
+                               / (self._steps * self.num_slots)
+                               if self._steps else 0.0),
+            "weight_sparsity": self.weight_sparsity,
+            "head_compression": self.head_compression,
+            "head_fallback": self.head_fallback,
+            "weight_stream": self.weight_stream_report(),
+            "paging": {"paged": False, "fallback": None,
+                       "reserved_kv_bytes": reserved,
+                       "contiguous_kv_bytes": reserved,
+                       "reserved_reduction": 1.0},
+            "cache_resets": self.kv.resets,
+            "fallbacks": dict(self.fallbacks),
+        }

@@ -1,0 +1,191 @@
+"""The paper's bitmap weight format, packed and unpacked with torch.
+
+Port of ``repro/sparse/format.py``: per (BK, BN) tile a packed bitmap
+(1 bit per element, little-endian within each byte), the tile's non-zero
+values packed row by row into a per-tile budget of value slots, and one
+start offset per row (the host-side half of EIM: the kernel finds a
+value at ``row_start[row] + rank``).
+
+Packing runs in torch on whatever device the weight lies on, with the
+reference's algorithm: budget = the largest tile non-zero count,
+``row_start`` = exclusive row cumsum, values at ``row_start + rank``.
+The packed tensors are byte-equal to the reference's numpy pack.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass
+class BitmapWeight:
+    """Bitmap-compressed (K, N) weight, tiled (BK, BN).
+
+    Stacked weights (``pack_bitmap_stacked``) carry a leading period axis
+    on each tensor while ``shape`` stays per-matrix.  ``dense_cache`` is
+    an optional pack-time dense rendering read only by the plain version
+    (``kernels/ref.bitmap_spmm_ref``) on the CPU; the CUDA kernel never
+    reads it, and it does not count toward ``hbm_bytes``.
+    """
+
+    packed_bits: torch.Tensor    # (KT, NT, BK, BN // 8) uint8
+    values: torch.Tensor         # (KT, NT, budget), row-major packed
+    row_start: torch.Tensor      # (KT, NT, BK) int32
+    shape: Tuple[int, int]
+    block: Tuple[int, int]
+    dense_cache: Optional[torch.Tensor] = None   # (K, N)
+
+    @property
+    def budget(self) -> int:
+        return self.values.shape[-1]
+
+    @property
+    def hbm_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.packed_bits, self.values, self.row_start))
+
+    @property
+    def dense_bytes(self) -> int:
+        stacks = (math.prod(self.values.shape[:-3])
+                  if self.values.dim() > 3 else 1)
+        return (stacks * self.shape[0] * self.shape[1]
+                * self.values.element_size())
+
+    @property
+    def compression(self) -> float:
+        return self.dense_bytes / self.hbm_bytes
+
+    @property
+    def nnz(self) -> int:
+        """Set bits in the bitmap: the non-zeros the product multiplies."""
+        return int(_POPCOUNT.to(self.packed_bits.device)[
+            self.packed_bits.long()].sum())
+
+    def period(self, p: int) -> "BitmapWeight":
+        """The p-th matrix of a period-stacked weight (views, no copy)."""
+        return BitmapWeight(
+            packed_bits=self.packed_bits[p], values=self.values[p],
+            row_start=self.row_start[p], shape=self.shape, block=self.block,
+            dense_cache=(self.dense_cache[p]
+                         if self.dense_cache is not None else None))
+
+
+_POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
+                         dtype=torch.int64)
+_SHIFTS = torch.arange(8, dtype=torch.uint8)
+
+
+def _pack_tiles(tiles: torch.Tensor, budget: int):
+    """(KT, NT, BK, BN) tiles -> (packed_bits, values, row_start)."""
+    kt, nt, bk, bn = tiles.shape
+    bits = tiles != 0
+    row_nnz = bits.sum(-1)
+    row_start = torch.zeros((kt, nt, bk), dtype=torch.int64,
+                            device=tiles.device)
+    row_start[:, :, 1:] = torch.cumsum(row_nnz, -1)[:, :, :-1]
+    slot = row_start[..., None] + torch.cumsum(bits, -1) - 1
+    tile_base = (torch.arange(kt * nt, device=tiles.device)
+                 * budget).view(kt, nt, 1, 1)
+    values = torch.zeros(kt * nt * budget, dtype=tiles.dtype,
+                         device=tiles.device)
+    # boolean indexing walks the set bits in row-major order, the order
+    # of np.nonzero in the reference
+    values[(tile_base + slot)[bits]] = tiles[bits]
+    shifts = _SHIFTS.to(tiles.device)
+    packed = (bits.view(kt, nt, bk, bn // 8, 8).to(torch.uint8) << shifts
+              ).sum(-1, dtype=torch.uint8)
+    return packed, values.view(kt, nt, budget), row_start.to(torch.int32)
+
+
+def _tiles(w: torch.Tensor, block: Tuple[int, int]) -> torch.Tensor:
+    k, n = w.shape
+    bk, bn = block
+    assert k % bk == 0 and n % bn == 0, (tuple(w.shape), block)
+    assert bn % 8 == 0, block
+    return w.reshape(k // bk, bk, n // bn, bn).permute(0, 2, 1, 3)
+
+
+def pack_bitmap(w: torch.Tensor, block: Tuple[int, int] = (128, 128),
+                density_budget: float | None = None,
+                budget: int | None = None,
+                cache_dense: bool = False) -> BitmapWeight:
+    """Pack a dense (K, N) tensor (zeros = pruned) into a BitmapWeight.
+
+    Default budget = the largest tile non-zero count (lossless).  With
+    ``density_budget`` a tile holding more than ``ceil(BK·BN·density)``
+    non-zeros keeps its largest magnitudes; an explicit ``budget`` (at
+    least the largest tile count) lets several packs share one budget.
+    """
+    k, n = w.shape
+    bk, bn = block
+    tiles = _tiles(w, block)
+    per_tile = (tiles != 0).sum((-1, -2))
+    if budget is not None:
+        assert density_budget is None
+        assert budget >= int(per_tile.max()), (budget, int(per_tile.max()))
+    elif density_budget is None:
+        budget = int(per_tile.max())
+    else:
+        budget = math.ceil(bk * bn * density_budget)
+        if bool((per_tile > budget).any()):
+            flat = tiles.abs().reshape(*per_tile.shape, -1)
+            size = flat.shape[-1]
+            # the reference's np.partition(flat, size - budget)[size - budget]
+            kth = flat.kthvalue(size - budget + 1, dim=-1).values
+            keep = (flat >= kth[..., None]) & (flat > 0)
+            tiles = tiles * keep.view(tiles.shape)
+    budget = max(budget, 1)
+    packed, values, row_start = _pack_tiles(tiles.contiguous(), budget)
+    dense = (tiles.permute(0, 2, 1, 3).reshape(k, n).clone()
+             if cache_dense else None)
+    return BitmapWeight(packed_bits=packed, values=values,
+                        row_start=row_start, shape=(k, n), block=(bk, bn),
+                        dense_cache=dense)
+
+
+def unpack_bitmap(bw: BitmapWeight) -> torch.Tensor:
+    """Plain decompression (the in-kernel EIM re-sort, whole matrix)."""
+    kt, nt, bk, bnb = bw.packed_bits.shape
+    bn = bnb * 8
+    shifts = _SHIFTS.to(bw.packed_bits.device)
+    bits = ((bw.packed_bits[..., None] >> shifts) & 1).reshape(kt, nt, bk, bn)
+    rank = torch.cumsum(bits, -1, dtype=torch.int64) - 1
+    idx = torch.clamp(bw.row_start[..., None].long() + rank, 0,
+                      bw.budget - 1)
+    vals = torch.gather(bw.values, -1, idx.reshape(kt, nt, bk * bn)
+                        ).reshape(kt, nt, bk, bn)
+    dense = torch.where(bits != 0, vals, torch.zeros((), dtype=vals.dtype,
+                                                     device=vals.device))
+    return dense.permute(0, 2, 1, 3).reshape(bw.shape)
+
+
+def pack_bitmap_stacked(w: torch.Tensor, block: Tuple[int, int],
+                        cache_dense: bool = False) -> BitmapWeight:
+    """Pack a period-stacked (P, K, N) tensor into one BitmapWeight whose
+    tensors carry a leading P axis, all periods sharing one budget (the
+    largest tile non-zero count across periods)."""
+    assert w.dim() == 3, tuple(w.shape)
+    p, k, n = w.shape
+    budget = max(1, max(int((_tiles(w[i], block) != 0).sum((-1, -2)).max())
+                        for i in range(p)))
+    per = [pack_bitmap(w[i], block=block, budget=budget,
+                       cache_dense=cache_dense) for i in range(p)]
+    return BitmapWeight(
+        packed_bits=torch.stack([q.packed_bits for q in per]),
+        values=torch.stack([q.values for q in per]),
+        row_start=torch.stack([q.row_start for q in per]),
+        shape=(k, n), block=tuple(block),
+        dense_cache=(torch.stack([q.dense_cache for q in per])
+                     if cache_dense else None))
+
+
+def unpack_bitmap_stacked(bw: BitmapWeight) -> torch.Tensor:
+    """Dense (P, K, N) rendering of a period-stacked BitmapWeight."""
+    if bw.values.dim() == 3:
+        return unpack_bitmap(bw)
+    return torch.stack([unpack_bitmap_stacked(dataclasses.replace(
+        bw.period(i), dense_cache=None))
+        for i in range(bw.packed_bits.shape[0])])
