@@ -7,7 +7,7 @@ main path went through the kernels.
 """
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"bitmap_spmm": 0}
+LAUNCHES: Dict[str, int] = {"bitmap_spmm": 0, "bitmap_spmm_grouped": 0}
 
 
 def reset_launches() -> None:

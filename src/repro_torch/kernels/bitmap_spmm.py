@@ -1,8 +1,11 @@
 """CUDA kernel for Hopper: dense × bitmap-compressed-sparse product (EIM).
 
-Replaces ``repro/kernels/bitmap_spmm.py:bitmap_spmm``, the Pallas TPU
-kernel that carries every packed projection and the LM head of the
-serving decode step.  The source is ``csrc/bitmap_spmm.cu`` (a plain C
+``bitmap_spmm`` replaces ``repro/kernels/bitmap_spmm.py:bitmap_spmm``, the
+Pallas TPU kernel that carries every packed projection and the LM head of
+the serving decode step.  ``bitmap_spmm_grouped`` replaces
+``repro/kernels/bitmap_spmm.py:bitmap_spmm_grouped`` (MoE expert stacks),
+which unrolls one TPU kernel call per group: here one launch covers every
+group, the group folded into the grid.  The source is ``csrc/bitmap_spmm.cu`` (a plain C
 entry point): it is compiled with ``nvcc`` for ``sm_90a`` at first use
 into ``_build/`` (named by a hash of the source and flags) and loaded
 with ``ctypes``.
@@ -87,6 +90,10 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.bitmap_spmm_grouped_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -95,30 +102,47 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def k_splits(kt: int, nt: int, m: int, sms: int) -> int:
-    """How many blocks share the K tiles of one (column tile, 8-row
-    block): enough for about four blocks per SM (two run at once, the
-    rest queue behind them), at most one per K tile.  More splits mean
-    more float32 partial sums to add."""
-    blocks = nt * -(-m // 8)
+def k_splits(kt: int, nt: int, m: int, sms: int, groups: int = 1) -> int:
+    """How many blocks share the K tiles of one (group, column tile,
+    8-row block): enough for about four blocks per SM (two run at once,
+    the rest queue behind them), at most one per K tile.  More splits
+    mean more float32 partial sums to add."""
+    blocks = groups * nt * -(-m // 8)
     return max(1, min(kt, -(-4 * sms // blocks)))
 
 
-def _check(x: torch.Tensor, w: BitmapWeight) -> Tuple[int, int, int, int]:
+def _check(x: torch.Tensor, w: BitmapWeight,
+           grouped: bool = False) -> Tuple[int, int, int, int]:
+    """Validate one call: x (M, K) and one matrix, or, ``grouped``,
+    x (G, M, K) and a group-stacked weight."""
+    name = "bitmap_spmm_grouped" if grouped else "bitmap_spmm"
     if not x.is_cuda:
-        raise ValueError(f"bitmap_spmm kernel needs a CUDA tensor, got "
+        raise ValueError(f"{name} kernel needs a CUDA tensor, got "
                          f"{x.device}")
-    if x.dim() != 2 or x.shape[0] > 8 * 65535:   # 8-row blocks on grid z
-        raise ValueError(f"x must be (M, K) with M <= {8 * 65535}, got "
-                         f"{tuple(x.shape)}")
+    if grouped:
+        if x.dim() != 3 or w.values.dim() != 4:
+            raise ValueError(f"x must be (G, M, K) and the weight "
+                             f"group-stacked, got x {tuple(x.shape)} and "
+                             f"values {tuple(w.values.shape)}")
+        if x.shape[0] != w.values.shape[0]:
+            raise ValueError(f"x has G={x.shape[0]} groups, the weight "
+                             f"{w.values.shape[0]}")
+        if x.shape[0] * -(-x.shape[1] // 8) > 65535:   # grid z
+            raise ValueError(f"G x ceil(M / 8) must be <= 65535, got "
+                             f"x {tuple(x.shape)}")
+    else:
+        if x.dim() != 2 or x.shape[0] > 8 * 65535:   # 8-row blocks on z
+            raise ValueError(f"x must be (M, K) with M <= {8 * 65535}, "
+                             f"got {tuple(x.shape)}")
+        if w.values.dim() != 3:
+            raise ValueError(f"one (K, N) matrix expected, got values of "
+                             f"shape {tuple(w.values.shape)} (slice a "
+                             f"stacked weight)")
     if x.dtype not in _TYPE_FLAG or w.values.dtype not in _TYPE_FLAG:
         raise TypeError(f"x and values must be float32 or bfloat16, got "
                         f"{x.dtype} and {w.values.dtype}")
     if w.packed_bits.dtype != torch.uint8 or w.row_start.dtype != torch.int32:
         raise TypeError("packed_bits must be uint8 and row_start int32")
-    if w.values.dim() != 3:
-        raise ValueError(f"one (K, N) matrix expected, got values of shape "
-                         f"{tuple(w.values.shape)} (slice a stacked weight)")
     for name, t in (("x", x), ("packed_bits", w.packed_bits),
                     ("values", w.values), ("row_start", w.row_start)):
         if t.device != x.device:
@@ -127,18 +151,19 @@ def _check(x: torch.Tensor, w: BitmapWeight) -> Tuple[int, int, int, int]:
             raise ValueError(f"{name} must be contiguous")
     k, n = w.shape
     bk, bn = w.block
-    kt, nt = w.packed_bits.shape[:2]
-    if x.shape[1] != k:
-        raise ValueError(f"x has K={x.shape[1]}, W is {w.shape}")
+    lead = (x.shape[0],) if grouped else ()
+    kt, nt = w.packed_bits.shape[len(lead):len(lead) + 2]
+    if x.shape[-1] != k:
+        raise ValueError(f"x has K={x.shape[-1]}, W is {w.shape}")
     if bn % 8 or not (1 <= bk <= 128 and 8 <= bn <= 128):
         raise ValueError(f"block {w.block}: need BK <= 128, 8 <= BN <= 128, "
                          f"BN % 8 == 0")
     if kt * bk != k or nt * bn != n:
         raise ValueError(f"tile grid {(kt, nt)} x block {w.block} does not "
                          f"cover {w.shape}")
-    if tuple(w.packed_bits.shape) != (kt, nt, bk, bn // 8) or tuple(
-            w.row_start.shape) != (kt, nt, bk) or tuple(
-            w.values.shape[:2]) != (kt, nt):
+    if tuple(w.packed_bits.shape) != lead + (kt, nt, bk, bn // 8) or tuple(
+            w.row_start.shape) != lead + (kt, nt, bk) or tuple(
+            w.values.shape[:-1]) != lead + (kt, nt):
         raise ValueError("packed_bits / values / row_start shapes disagree")
     return kt, nt, bk, bn
 
@@ -173,18 +198,54 @@ def bitmap_spmm(x: torch.Tensor, w: BitmapWeight,
     return out
 
 
-def hbm_traffic_model(x_shape: Tuple[int, int], w: BitmapWeight,
+def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
+                        out_dtype: torch.dtype | None = None
+                        ) -> torch.Tensor:
+    """``x[g] @ W_g`` for every group on the card, in one launch: x
+    (G, M, K) float32 or bfloat16, W group-stacked (leaves (G, KT, NT,
+    ...), one budget) -> (G, M, N) in ``out_dtype`` (default
+    ``x.dtype``).  Launches on the current stream or raises."""
+    kt, nt, bk, bn = _check(x, w, grouped=True)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in _TYPE_FLAG:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    g, m, _ = x.shape
+    out = torch.empty((g, m, nt * bn), dtype=out_dtype, device=x.device)
+    if m == 0 or g == 0:
+        return out
+    splits = k_splits(kt, nt, m, _sm_count(x.device), groups=g)
+    partial = (torch.empty((splits, g, m, nt * bn), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    fn = _library().bitmap_spmm_grouped_launch
+    rc = fn(x.data_ptr(), w.packed_bits.data_ptr(), w.values.data_ptr(),
+            w.row_start.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None, g, m, kt,
+            nt, bk, bn, w.budget, splits, _TYPE_FLAG[x.dtype],
+            _TYPE_FLAG[w.values.dtype], _TYPE_FLAG[out_dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bitmap_spmm_grouped launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["bitmap_spmm_grouped"] += 1
+    return out
+
+
+def hbm_traffic_model(x_shape: Tuple[int, ...], w: BitmapWeight,
                       bm: int = 128, itemsize: int = 2) -> dict:
     """Analytic HBM bytes of one bitmap_spmm call vs its dense equivalent
     (a copy of the reference's model: activations re-fetched once per
     output-column block, weights once per output-row block, outputs
-    written once)."""
-    m, k = x_shape
+    written once).  A grouped call (x_shape (G, M, K), W group-stacked)
+    is G calls of one group's shape: its activation and output terms
+    scale by G, and ``w.hbm_bytes`` already counts every group."""
+    *lead, m, k = x_shape
+    groups = lead[0] if lead else 1
     _, n = w.shape
     nt = n // w.block[1]
     mt = max(1, -(-m // bm))
-    x_bytes = m * k * itemsize * nt
-    out_bytes = m * n * itemsize
+    x_bytes = groups * m * k * itemsize * nt
+    out_bytes = groups * m * n * itemsize
     w_sparse = w.hbm_bytes * mt
     w_dense = w.dense_bytes * mt
     return {

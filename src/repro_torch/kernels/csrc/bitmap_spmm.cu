@@ -27,8 +27,18 @@
 // warps at the end.  Not done yet: TMA, and fewer wasted multiply-adds
 // when M < 8.
 //
-// Grid: (N / BN, splits of K, ceil(M / 8)).  Any M >= 1: the ragged last
-// row block is masked, with no padding of X.
+// Grid: (N / BN, splits of K, G x ceil(M / 8)).  Any M >= 1: the ragged
+// last row block is masked, with no padding of X.
+//
+// The grouped form (bitmap_spmm_grouped_launch) computes Y[g] = X[g] . W_g
+// for a group-stacked W (MoE expert stacks: G experts, one shared value
+// budget, so every group's leaves have the same stride).  It replaces
+// src/repro/kernels/bitmap_spmm.py:bitmap_spmm_grouped, which unrolls G
+// calls of the TPU kernel.  Here the group is folded into grid z (z = g x
+// row blocks + row block) and each block offsets its pointers by g, so one
+// launch keeps every group's tiles in flight; split-K counts all G x N/BN
+// x row-block blocks when sizing the split.  Bound, as for one matrix: the
+// compressed weight bytes at decode M.  K1 is the case G = 1.
 
 #include <cstdint>
 
@@ -115,7 +125,8 @@ bitmap_spmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ bits,
                    const int32_t* __restrict__ row_start,
                    OT* __restrict__ out, float* __restrict__ partial, int m,
                    int kt_count, int nt_count, int bk, int bn, int budget,
-                   int tiles_per_split, int stage_elems) {
+                   int tiles_per_split, int stage_elems, int row_blocks,
+                   int groups) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ float xs[2][kRowsM][kMaxBK];
   __shared__ __align__(16) uint8_t bits_s[2][kMaxBK * kRowBytes];
@@ -126,9 +137,17 @@ bitmap_spmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ bits,
   const int warp = tid >> 5;
   const int nt = blockIdx.x;
   const int split = blockIdx.y;
-  const int m0 = blockIdx.z * kRowsM;
+  const int g = blockIdx.z / row_blocks;
+  const int m0 = (blockIdx.z % row_blocks) * kRowsM;
   const int k = kt_count * bk;
   const int n = nt_count * bn;
+  // this block's group: every group's leaves have the same stride
+  const size_t tiles = static_cast<size_t>(kt_count) * nt_count;
+  x += static_cast<size_t>(g) * m * k;
+  bits += static_cast<size_t>(g) * tiles * bk * (bn / 8);
+  values += static_cast<size_t>(g) * tiles * budget;
+  row_start += static_cast<size_t>(g) * tiles * bk;
+  out += static_cast<size_t>(g) * m * n;
   const uint32_t lanes_below = (1u << lane) - 1u;
   const int kt0 = split * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, kt_count);
@@ -224,8 +243,8 @@ bitmap_spmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ bits,
     for (int w = 0; w < kWarps; ++w) s += red[(w * kRowsM + i) * kMaxBN + c];
     const size_t at = static_cast<size_t>(m0 + i) * n +
                       static_cast<size_t>(nt) * bn + c;
-    if (partial != nullptr)
-      partial[static_cast<size_t>(split) * m * n + at] = s;
+    if (partial != nullptr)   // (splits, G, M, N)
+      partial[(static_cast<size_t>(split) * groups + g) * m * n + at] = s;
     else
       out[at] = from_f32<OT>(s);
   }
@@ -245,8 +264,8 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 
 template <typename XT, typename VT, typename OT>
 int launch(const void* x, const void* bits, const void* values,
-           const void* row_start, void* out, void* partial, int m, int kt,
-           int nt, int bk, int bn, int budget, int splits,
+           const void* row_start, void* out, void* partial, int groups,
+           int m, int kt, int nt, int bk, int bn, int budget, int splits,
            cudaStream_t stream) {
   auto kernel = bitmap_spmm_kernel<XT, VT, OT>;
   static const cudaError_t configured = cudaFuncSetAttribute(
@@ -259,15 +278,16 @@ int launch(const void* x, const void* bits, const void* values,
                           16 / static_cast<int>(sizeof(VT));
   const int vbytes = 2 * stage_elems * static_cast<int>(sizeof(VT));
   const int dyn = vbytes > kRedBytes ? vbytes : kRedBytes;
-  const dim3 grid(nt, used, (m + kRowsM - 1) / kRowsM);
+  const int row_blocks = (m + kRowsM - 1) / kRowsM;
+  const dim3 grid(nt, used, groups * row_blocks);
   float* part = used > 1 ? static_cast<float*>(partial) : nullptr;
   kernel<<<grid, kThreads, dyn, stream>>>(
       static_cast<const XT*>(x), static_cast<const uint8_t*>(bits),
       static_cast<const VT*>(values), static_cast<const int32_t*>(row_start),
       static_cast<OT*>(out), part, m, kt, nt, bk, bn, budget, per,
-      stage_elems);
+      stage_elems, row_blocks, groups);
   if (used > 1) {
-    const size_t count = static_cast<size_t>(m) * nt * bn;
+    const size_t count = static_cast<size_t>(groups) * m * nt * bn;
     const int threads = 256;
     const unsigned blocks = static_cast<unsigned>((count + threads - 1) / threads);
     sum_splits_kernel<OT><<<blocks, threads, 0, stream>>>(
@@ -278,23 +298,51 @@ int launch(const void* x, const void* bits, const void* values,
 
 template <typename XT, typename VT>
 int launch_out(int o_bf16, const void* x, const void* bits, const void* values,
-               const void* row_start, void* out, void* partial, int m, int kt,
-               int nt, int bk, int bn, int budget, int splits,
+               const void* row_start, void* out, void* partial, int groups,
+               int m, int kt, int nt, int bk, int bn, int budget, int splits,
                cudaStream_t stream) {
   return o_bf16 ? launch<XT, VT, __nv_bfloat16>(x, bits, values, row_start, out,
-                                                partial, m, kt, nt, bk, bn,
-                                                budget, splits, stream)
+                                                partial, groups, m, kt, nt, bk,
+                                                bn, budget, splits, stream)
                 : launch<XT, VT, float>(x, bits, values, row_start, out,
-                                        partial, m, kt, nt, bk, bn, budget,
-                                        splits, stream);
+                                        partial, groups, m, kt, nt, bk, bn,
+                                        budget, splits, stream);
+}
+
+int dispatch(const void* x, const void* bits, const void* values,
+             const void* row_start, void* out, void* partial, int groups,
+             int m, int kt, int nt, int bk, int bn, int budget, int splits,
+             int x_bf16, int v_bf16, int o_bf16, void* stream) {
+  const long long row_blocks = (m + kRowsM - 1) / kRowsM;
+  if (groups < 1 || m < 1 || kt < 1 || nt < 1 || bk < 1 || bk > kMaxBK ||
+      bn < 8 || bn > kMaxBN || bn % 8 != 0 || budget < 1 ||
+      budget > kMaxBK * kMaxBN || splits < 1 ||
+      (splits > 1 && partial == nullptr) || groups * row_blocks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    return v_bf16 ? launch_out<__nv_bfloat16, __nv_bfloat16>(
+                        o_bf16, x, bits, values, row_start, out, partial,
+                        groups, m, kt, nt, bk, bn, budget, splits, s)
+                  : launch_out<__nv_bfloat16, float>(
+                        o_bf16, x, bits, values, row_start, out, partial,
+                        groups, m, kt, nt, bk, bn, budget, splits, s);
+  }
+  return v_bf16 ? launch_out<float, __nv_bfloat16>(o_bf16, x, bits, values,
+                                                   row_start, out, partial,
+                                                   groups, m, kt, nt, bk, bn,
+                                                   budget, splits, s)
+                : launch_out<float, float>(o_bf16, x, bits, values, row_start,
+                                           out, partial, groups, m, kt, nt, bk,
+                                           bn, budget, splits, s);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Type flags: 0 = float32,
+// Plain C entry points, loaded with ctypes.  Type flags: 0 = float32,
 // 1 = bfloat16.  `splits` > 1 splits K over that many blocks per column
 // tile (fewer if the K tiles do not divide evenly); `partial` is then a
-// float32 scratch buffer of splits × M × N.  Returns the launches'
+// float32 scratch buffer of splits x G x M x N.  Each returns the launches'
 // cudaGetLastError() (0 = success).
 extern "C" int bitmap_spmm_launch(const void* x, const void* bits,
                                   const void* values, const void* row_start,
@@ -302,24 +350,17 @@ extern "C" int bitmap_spmm_launch(const void* x, const void* bits,
                                   int nt, int bk, int bn, int budget,
                                   int splits, int x_bf16, int v_bf16,
                                   int o_bf16, void* stream) {
-  if (m < 1 || kt < 1 || nt < 1 || bk < 1 || bk > kMaxBK || bn < 8 ||
-      bn > kMaxBN || bn % 8 != 0 || budget < 1 || budget > kMaxBK * kMaxBN ||
-      splits < 1 || (splits > 1 && partial == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return v_bf16 ? launch_out<__nv_bfloat16, __nv_bfloat16>(
-                        o_bf16, x, bits, values, row_start, out, partial, m,
-                        kt, nt, bk, bn, budget, splits, s)
-                  : launch_out<__nv_bfloat16, float>(
-                        o_bf16, x, bits, values, row_start, out, partial, m,
-                        kt, nt, bk, bn, budget, splits, s);
-  }
-  return v_bf16 ? launch_out<float, __nv_bfloat16>(o_bf16, x, bits, values,
-                                                   row_start, out, partial, m,
-                                                   kt, nt, bk, bn, budget,
-                                                   splits, s)
-                : launch_out<float, float>(o_bf16, x, bits, values, row_start,
-                                           out, partial, m, kt, nt, bk, bn,
-                                           budget, splits, s);
+  return dispatch(x, bits, values, row_start, out, partial, 1, m, kt, nt, bk,
+                  bn, budget, splits, x_bf16, v_bf16, o_bf16, stream);
+}
+
+// Y[g] = X[g] . W_g for g < groups: X (G, M, K), Y (G, M, N), the weight's
+// leaves (G, KT, NT, ...) with one budget for the whole stack.
+extern "C" int bitmap_spmm_grouped_launch(
+    const void* x, const void* bits, const void* values, const void* row_start,
+    void* out, void* partial, int groups, int m, int kt, int nt, int bk,
+    int bn, int budget, int splits, int x_bf16, int v_bf16, int o_bf16,
+    void* stream) {
+  return dispatch(x, bits, values, row_start, out, partial, groups, m, kt, nt,
+                  bk, bn, budget, splits, x_bf16, v_bf16, o_bf16, stream);
 }

@@ -36,3 +36,19 @@ def bitmap_spmm(x: torch.Tensor, w: BitmapWeight, impl: str | None = None,
     else:
         out = _ref.bitmap_spmm_ref(x2, w, out_dtype=out_dtype)
     return out.reshape(*lead, w.shape[1])
+
+
+def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
+                        impl: str | None = None,
+                        out_dtype: torch.dtype | None = None
+                        ) -> torch.Tensor:
+    """``x[g] @ W_g`` over a group-stacked ``BitmapWeight`` (MoE expert
+    stacks; ``sparse.format.pack_bitmap_experts``): x (G, M, K) ->
+    (G, M, N), one kernel launch for all G groups on the card."""
+    impl = impl or default_impl(x)
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "cuda":
+        return _bitmap_spmm.bitmap_spmm_grouped(x.contiguous(), w,
+                                                out_dtype=out_dtype)
+    return _ref.bitmap_spmm_grouped_ref(x, w, out_dtype=out_dtype)

@@ -17,22 +17,23 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                 max_new: tuple = (8, 24), sparsity: float = 0.0,
                 head_sparsity: float | None = None, seed: int = 0,
                 stream_weights: bool = True, temperature: float = 0.0,
-                top_k: int = 0, device: str | None = None,
-                verbose: bool = True) -> dict:
+                top_k: int = 0, prefill_chunk: int = 0,
+                device: str | None = None, verbose: bool = True) -> dict:
     """Continuous-batching mode: a seeded Poisson trace into the engine.
 
     ``head_sparsity`` defaults to ``sparsity``; ``stream_weights=False``
     serves a fully dense-dispatch baseline (stack and head).
     ``temperature`` > 0 samples every request at that temperature
-    (top-``top_k`` truncated); default greedy.  ``device`` defaults to
-    ``cuda`` and raises without a card.
+    (top-``top_k`` truncated); default greedy.  ``prefill_chunk`` > 0
+    ingests prompts in chunks of that many tokens (0: the prompt walk).
+    ``device`` defaults to ``cuda`` and raises without a card.
     """
     eng = ServeEngine.from_arch(arch, smoke=smoke, num_slots=slots,
                                 max_len=max_len, sparsity=sparsity,
                                 head_sparsity=head_sparsity, seed=seed,
                                 stream_weights=stream_weights,
                                 bitmap_head=stream_weights, top_k=top_k,
-                                device=device)
+                                prefill_chunk=prefill_chunk, device=device)
     prompt_len = (1, min(4, max_len))
     hi = max(1, min(max_new[1], max_len - prompt_len[1] + 1))
     lo = max(1, min(max_new[0], hi))
@@ -63,6 +64,13 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
               f"p50 {lat['p50'] * 1e3:.1f}ms p99 {lat['p99'] * 1e3:.1f}ms "
               f"| first-token p50 {ftl['p50'] * 1e3:.1f}ms "
               f"p99 {ftl['p99'] * 1e3:.1f}ms")
+        pf = rep["prefill"]
+        if pf["enabled"]:
+            print(f"  chunked prefill: {pf['calls']} calls of {pf['chunk']} "
+                  f"tokens, {pf['tokens_prefilled']} prompt tokens "
+                  f"(lane utilization {pf['lane_utilization']:.0%})")
+        elif pf["fallback"]:
+            print(f"  prefill fallback: {pf['fallback']}")
     return rep
 
 
@@ -86,6 +94,9 @@ def main(argv=None):
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="default top-k truncation for sampled requests")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="ingest prompts in chunks of this many tokens, one "
+                         "batched call per step (0 = the prompt walk)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -96,7 +107,8 @@ def main(argv=None):
                 head_sparsity=args.head_sparsity,
                 stream_weights=not args.dense_stack,
                 temperature=args.temperature, top_k=args.top_k,
-                device=args.device, seed=args.seed)
+                prefill_chunk=args.prefill_chunk, device=args.device,
+                seed=args.seed)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""The serving decode step: model step + LM head + token choice.
+"""The serving steps: the decode step (model step + LM head + token
+choice) and the chunked-prefill call.
 
-Port of ``repro/launch/steps.py:build_serve_step``.  Greedy argmax by
-default; slots with a temperature above 0 sample from
-``softmax(logits / T)``, optionally truncated to their own top-k.
+Port of ``repro/launch/steps.py:build_serve_step`` and
+``build_prefill_step``.  Greedy argmax by default; slots with a
+temperature above 0 sample from ``softmax(logits / T)``, optionally
+truncated to their own top-k.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step
+from repro_torch.models.model import decode_step, prefill_hidden
 
 
 def gumbel_noise(seed: int, pos: int, vocab: int) -> torch.Tensor:
@@ -65,3 +67,23 @@ def build_serve_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
         return next_tok, logits, cache
 
     return serve_step
+
+
+def build_prefill_step(cfg: ModelConfig) -> Callable:
+    """One chunked-prefill call: (params, cache, tokens, pos, lens) ->
+    (hidden (B, C, D), cache).
+
+    ``tokens`` (B, C) holds one C-token slice of prompt per slot
+    (``serve/prefill.PrefillPlanner``); ``pos`` (B,) each slot's chunk
+    start and ``lens`` (B,) its valid tokens this call (0 = padding lane,
+    writes nothing).  The C KV lines per slot are written into the cache
+    in place; every projection runs at M = B·C (``packed`` routes them
+    through the kernels, as in the decode step).  No LM head: the first
+    token comes from the first decode step after prefill.
+    """
+
+    def prefill_step(params, cache, tokens, pos, lens, packed=None):
+        return prefill_hidden(params, cache, cfg, tokens, pos, lens,
+                              packed=packed)
+
+    return prefill_step

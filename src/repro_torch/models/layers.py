@@ -100,16 +100,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def slot_kv_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
                    k: torch.Tensor, v: torch.Tensor,
-                   write_slot: torch.Tensor) -> None:
+                   write_slot: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None) -> None:
     """Write one K/V line per batch row into the contiguous slotted cache,
     in place (the reference returns new arrays; here the cache tensors
     are updated where they lie, so no cache is copied per step).
 
     k_cache/v_cache: (B, C, Hkv, D); k/v: (B, 1, Hkv, D); write_slot: (B,).
+    ``valid`` ((B,) bool) masks rows off: chunked prefill's padding lanes
+    write nothing.  A masked row writes back the line it finds, so the
+    update needs no host sync to count the valid rows.
     """
     bidx = torch.arange(k_cache.shape[0], device=k_cache.device)
-    k_cache[bidx, write_slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, write_slot] = v[:, 0].to(v_cache.dtype)
+    knew = k[:, 0].to(k_cache.dtype)
+    vnew = v[:, 0].to(v_cache.dtype)
+    if valid is not None:
+        keep = valid[:, None, None]
+        knew = torch.where(keep, knew, k_cache[bidx, write_slot])
+        vnew = torch.where(keep, vnew, v_cache[bidx, write_slot])
+    k_cache[bidx, write_slot] = knew
+    v_cache[bidx, write_slot] = vnew
 
 
 def matmul_or_bitmap(h: torch.Tensor, w: torch.Tensor, bw,
@@ -137,3 +147,123 @@ def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig,
         h = activation(matmul_or_bitmap(x, params["w_up"],
                                         pk.get("w_up"), impl), cfg.act)
     return matmul_or_bitmap(h, params["w_down"], pk.get("w_down"), impl)
+
+
+# ----------------------------------------------------------------- MoE -----
+
+
+def expert_matmul_or_bitmap(h: torch.Tensor, w: torch.Tensor, bw,
+                            impl: Optional[str]) -> torch.Tensor:
+    """Per-expert product ``h[..., e, :, :] @ w[e]``: h (..., E, C, K),
+    w (E, K, N).  A group-stacked ``BitmapWeight`` streams every
+    expert's compressed tiles through ``kernels/ops.bitmap_spmm_grouped``
+    (one kernel launch for all experts on the card) with the rows of all
+    leading dims folded into each expert's M."""
+    if bw is None:
+        return torch.einsum("...eck,ekn->...ecn", h, w.to(h.dtype))
+    from repro_torch.kernels import ops
+    lead = h.shape[:-3]
+    e, c, k = h.shape[-3:]
+    hx = h.reshape(-1, e, c, k).transpose(0, 1).reshape(e, -1, k)
+    out = ops.bitmap_spmm_grouped(hx, bw, impl=impl)
+    n = out.shape[-1]
+    return out.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
+
+
+def top_k_lower_index(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, ties broken
+    toward the lower index (``torch.topk`` promises no order).  A stable
+    descending sort keeps equal values in index order."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
+            packed: Optional[dict] = None,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """Sort-based top-k MoE with static per-row capacity (the reference's
+    ``moe_ffn``): x (B, S, D) -> (B, S, D).
+
+    Each batch row dispatches on its own: capacity
+    ``int(S·k·cf / E) + 1``, tokens past an expert's capacity dropped.
+    Router softmax in float32; top-k with ties toward the lower expert;
+    gates renormalised by ``max(sum, 1e-9)``; a stable argsort by expert
+    and ``searchsorted`` ranks; the bucket scatter; three expert
+    products (grouped kernel when ``packed`` holds the stacks); and the
+    float32 combine.  The combine sums each token's k contributions in
+    ascending expert order — the order the reference's scatter-add
+    applies them in (updates sorted by expert) — as a fixed sequence of
+    adds, so it is deterministic on the card and equal to the reference
+    in float32.  Every step is sync-free on the card.
+    """
+    pk = packed or {}
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    cap = int(s * k * cfg.capacity_factor / e) + 1
+    dev = x.device
+
+    logits = matmul_or_bitmap(x, params["router"], pk.get("router"), impl)
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate, expert_idx = top_k_lower_index(probs, k)            # (B, S, k)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = expert_idx.reshape(b, s * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)         # (B, S*k)
+    sorted_e = torch.gather(flat_e, 1, order)
+    # rank within an expert = position - its first occurrence
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(s * k, device=dev)[None, :] - first
+    keep = rank < cap
+    slot = sorted_e * cap + torch.where(keep, rank, 0)         # (B, S*k)
+    src = order // k                                            # token id
+
+    rows = torch.arange(b, device=dev)[:, None].expand(b, s * k)
+    gathered = torch.gather(x, 1, src[..., None].expand(b, s * k, d))
+    # one real row per kept slot; dropped entries add zeros
+    buf = torch.zeros((b, e * cap, d), dtype=x.dtype, device=dev)
+    buf.index_put_((rows, slot),
+                   torch.where(keep[..., None], gathered,
+                               torch.zeros((), dtype=x.dtype, device=dev)),
+                   accumulate=True)
+    buf = buf.reshape(b, e, cap, d)
+
+    h = activation(expert_matmul_or_bitmap(buf, params["w_gate"],
+                                           pk.get("w_gate"), impl), cfg.act)
+    h = h * expert_matmul_or_bitmap(buf, params["w_up"], pk.get("w_up"),
+                                    impl)
+    y = expert_matmul_or_bitmap(h, params["w_down"], pk.get("w_down"),
+                                impl).reshape(b, e * cap, d)
+
+    return moe_combine(y, slot, keep, order, gate, expert_idx).to(x.dtype)
+
+
+def moe_combine(y: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+                order: torch.Tensor, gate: torch.Tensor,
+                expert_idx: torch.Tensor) -> torch.Tensor:
+    """The MoE combine, in float32: token t's output is the sum over its
+    k experts of ``gate · y[slot]`` (zero where dropped at capacity).
+
+    y (B, E·cap, D); slot, keep, order (B, S·k) in sorted-by-expert
+    order; gate, expert_idx (B, S, k).  The reference scatter-adds the
+    terms in sorted order, so each token's k terms arrive by ascending
+    expert; here they are gathered into that order and added one after
+    another from zero — the same float32 sum, with no atomics.
+    """
+    b, s, k = gate.shape
+    d = y.shape[-1]
+    # each flat entry (t, j)'s place in the sorted order
+    inv = torch.argsort(order, dim=-1)
+    slot_f = torch.gather(slot, 1, inv)
+    keep_f = torch.gather(keep, 1, inv)
+    out_tok = torch.gather(y, 1, slot_f[..., None].expand(b, s * k, d))
+    contrib = torch.where(keep_f[..., None], out_tok,
+                          torch.zeros((), dtype=y.dtype, device=y.device))
+    contrib = (contrib.float() * gate.reshape(b, s * k, 1)).reshape(
+        b, s, k, d)
+    by_expert = torch.argsort(expert_idx, dim=-1)
+    contrib = torch.gather(contrib, 2,
+                           by_expert[..., None].expand(b, s, k, d))
+    out = torch.zeros((b, s, d), dtype=torch.float32, device=y.device)
+    for j in range(k):
+        out = out + contrib[:, :, j]
+    return out

@@ -4,9 +4,9 @@ Port of the decode-path parts of ``repro/models/model.py``.  Parameters
 are a nested dict of tensors with the reference's path names, block
 leaves stacked over periods (leading dim P).  The reference's
 ``lax.scan`` over periods becomes a Python loop over the period index;
-the KV cache is updated in place.  Attention mixers with MLP (or no)
-FFNs are ported; MoE, mamba and rwkv blocks raise
-``NotImplementedError``.
+the KV cache is updated in place.  Attention mixers with MLP, MoE (or
+no) FFNs are ported, on the decode path and chunked prefill over the
+contiguous cache; mamba and rwkv blocks raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -279,13 +279,108 @@ def decode_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
                     f"{blk.mixer} mixers are not ported yet")
             x = x + _decode_attn(bp["attn"], x, pc, cfg, blk, pos,
                                  packed=pw.get("attn"), impl=impl)
-            if blk.ffn == "mlp":
-                xn = L.norm(x, bp["mlp"].get("norm"), cfg.norm)
-                x = x + L.mlp(bp["mlp"], xn, cfg, packed=pw.get("mlp"),
-                              impl=impl)
-            elif blk.ffn != "none":
+            x = _ffn(bp, pw, x, cfg, blk, impl)
+    return L.norm(x, params.get("final_norm"), cfg.norm), cache
+
+
+def _ffn(bp: Dict, pw: Dict, x: torch.Tensor, cfg: ModelConfig,
+         blk: BlockCfg, impl: Optional[str]) -> torch.Tensor:
+    """The residual FFN sub-block of one layer: x (B, S, D) -> x + ffn.
+    MoE dispatches each of the B·S tokens as its own row (x folded to
+    (B·S, 1, D)), so a prefill chunk routes, and drops at capacity, token
+    for token as the decode steps would."""
+    if blk.ffn == "mlp":
+        xn = L.norm(x, bp["mlp"].get("norm"), cfg.norm)
+        return x + L.mlp(bp["mlp"], xn, cfg, packed=pw.get("mlp"),
+                         impl=impl)
+    if blk.ffn == "moe":
+        b, s, d = x.shape
+        xn = L.norm(x, bp["moe"].get("norm"), cfg.norm)
+        mo = L.moe_ffn(bp["moe"], xn.reshape(b * s, 1, d), cfg,
+                       packed=pw.get("moe"), impl=impl)
+        return x + mo.reshape(b, s, d)
+    if blk.ffn != "none":
+        raise NotImplementedError(f"{blk.ffn} FFNs are not ported yet")
+    return x
+
+
+def _prefill_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
+                  blk: BlockCfg, pos: torch.Tensor, lens: torch.Tensor,
+                  packed: Optional[Dict] = None,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """Chunked-prefill attention over the contiguous cache: C tokens per
+    slot in one call.  x: (B, C, D); pos: (B,) chunk start positions;
+    lens: (B,) valid tokens per slot (lanes past it are padding and
+    write nothing).
+
+    The q/k/v/o projections run batched over the chunk (M = B·C rows);
+    the cache write and the attention scan the chunk one token at a
+    time — token t's K/V line is written, then token t attends — exactly
+    the state a decode step sees at that position, so chunked prefill is
+    bit-identical to walking the prompt through decode steps.
+    """
+    b, c_chunk, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    pk = packed or {}
+    xn = L.norm(x, p.get("norm"), cfg.norm)
+    q = L.matmul_or_bitmap(xn, p["wq"], pk.get("wq"), impl).reshape(
+        b, c_chunk, h, hd)
+    k = L.matmul_or_bitmap(xn, p["wk"], pk.get("wk"), impl).reshape(
+        b, c_chunk, kv, hd)
+    v = L.matmul_or_bitmap(xn, p["wv"], pk.get("wv"), impl).reshape(
+        b, c_chunk, kv, hd)
+    if cfg.qk_norm:
+        q = L.norm(q, p["q_norm"], "rmsnorm")
+        k = L.norm(k, p["k_norm"], "rmsnorm")
+    posb = pos[:, None] + torch.arange(c_chunk, device=x.device)[None, :]
+    q = L.rope(q, posb, cfg.rope_theta)
+    k = L.rope(k, posb, cfg.rope_theta)
+    cap = cache["k"].shape[1]
+    ring = blk.window is not None and cap == blk.window
+    outs = []
+    for t in range(c_chunk):
+        pos_t = pos + t
+        slot = (pos_t % cap) if ring else pos_t.clamp(0, cap - 1)
+        L.slot_kv_update(cache["k"], cache["v"], k[:, t:t + 1],
+                         v[:, t:t + 1], slot, valid=t < lens)
+        outs.append(L.decode_attention(q[:, t:t + 1], cache["k"],
+                                       cache["v"], pos_t,
+                                       window=blk.window, ring=ring))
+    o = torch.cat(outs, dim=1)                             # (B, C, Hq, hd)
+    return L.matmul_or_bitmap(o.reshape(b, c_chunk, h * hd), p["wo"],
+                              pk.get("wo"), impl)
+
+
+def prefill_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
+                   tokens: Optional[torch.Tensor], pos: torch.Tensor,
+                   lens: torch.Tensor,
+                   embeds: Optional[torch.Tensor] = None,
+                   packed: Optional[Dict] = None,
+                   impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+    """One chunked-prefill call: C prompt tokens per slot in one pass.
+
+    tokens: (B, C) (or embeds (B, C, D)); pos: (B,) chunk start
+    positions; lens: (B,) valid tokens per slot (0: the slot sits the
+    call out, its lane writes nothing).  Returns (hidden (B, C, D) after
+    the final norm, cache) — the cache passed in, its C lines per slot
+    written in place.  Projections run at M = B·C; MoE FFNs fold the
+    chunk into the batch so expert capacity matches the decode path.
+    Recurrent mixers (mamba/rwkv) have no chunked path and raise.
+    """
+    x = embed_inputs(params, cfg, tokens, embeds)
+    for per in range(cfg.num_periods):
+        for i, blk in enumerate(cfg.pattern):
+            bname = f"b{i}"
+            if blk.mixer != "attn" or blk.ffn == "rwkv_cm":
                 raise NotImplementedError(
-                    f"{blk.ffn} FFNs are not ported yet")
+                    f"chunked prefill has no {blk.mixer}/{blk.ffn} path")
+            bp = _period(params["blocks"][bname], per)
+            pc = {k: v[per] for k, v in cache[bname].items()}
+            pw = _period((packed or {}).get(bname), per) or {}
+            x = x + _prefill_attn(bp["attn"], x, pc, cfg, blk, pos, lens,
+                                  packed=pw.get("attn"), impl=impl)
+            x = _ffn(bp, pw, x, cfg, blk, impl)
     return L.norm(x, params.get("final_norm"), cfg.norm), cache
 
 

@@ -11,16 +11,20 @@ Port of the core of ``repro/serve/engine.py``:
   packed once into the paper's ``BitmapWeight`` format
   (``serve/packed.py``), plus the per-tensor-pruned LM head: every
   attention and MLP projection and the head go through
-  ``kernels/ops.bitmap_spmm`` on every decode step — on the card, the
-  hand-written CUDA kernel;
+  ``kernels/ops.bitmap_spmm`` on every decode step, and every MoE
+  expert stack through ``kernels/ops.bitmap_spmm_grouped`` — on the
+  card, the hand-written CUDA kernels;
 * prompts are walked one position per decode step (teacher forcing),
-  and each slot decodes at its own position.
+  or, with ``prefill_chunk`` > 0, ingested ``prefill_chunk`` tokens at a
+  time through one batched chunked-prefill call per engine step
+  (``serve/prefill.py``; token-identical to the walk); each slot decodes
+  at its own position.
 
 It runs on ``cuda`` unless the caller passes ``device="cpu"`` (the CPU
 takes the kernels' plain versions); with no card and no explicit CPU it
-raises.  Paging, chunked prefill, prefix reuse, preemption, deadlines,
-load shedding, faults, telemetry and the traffic ledger are not ported
-yet, nor are MoE and recurrent (mamba / rwkv) blocks.
+raises.  Paging, prefix reuse, preemption, deadlines, load shedding,
+faults, telemetry and the traffic ledger are not ported yet, nor are
+recurrent (mamba / rwkv) blocks.
 """
 from __future__ import annotations
 
@@ -35,12 +39,15 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import build_serve_step
+from repro_torch.launch.steps import build_prefill_step, build_serve_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, lm_head_weight
 from repro_torch.serve.cache import SlotKVCache
 from repro_torch.serve.errors import RequestRejected
-from repro_torch.serve.packed import PackedModel, choose_block, pack_model
+from repro_torch.serve.packed import (ROUTED_EXPERT, PackedModel,
+                                      activated_scale, choose_block,
+                                      pack_model)
+from repro_torch.serve.prefill import PrefillPlanner
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import SlotScheduler
 from repro_torch.serve.trace import RollingStat
@@ -71,10 +78,24 @@ def _unported(cfg: ModelConfig) -> List[str]:
     out = sorted({f"{b.mixer} mixer" for b in cfg.pattern
                   if b.mixer != "attn"}
                  | {f"{b.ffn} FFN" for b in cfg.pattern
-                    if b.ffn not in ("mlp", "none")})
+                    if b.ffn not in ("mlp", "moe", "none")})
     if cfg.frontend == "frames":
         out.append("frames frontend")
     return out
+
+
+def prefill_fallback(cfg: ModelConfig) -> Optional[str]:
+    """Why ``cfg`` keeps the prompt walk when chunked prefill is asked
+    for (the reference's reasons), or None: the frames frontend derives
+    its embeds from the step counter, and recurrent mixer state advances
+    one token per step."""
+    if cfg.frontend == "frames":
+        return (f"{cfg.name}: frames frontend derives per-step embeds "
+                f"from the step counter; nothing to prefill")
+    if any(b.mixer != "attn" or b.ffn == "rwkv_cm" for b in cfg.pattern):
+        return (f"{cfg.name}: recurrent mixer state (mamba/rwkv) has "
+                f"no chunked prefill path yet; teacher-forcing kept")
+    return None
 
 
 class ServeEngine:
@@ -85,6 +106,7 @@ class ServeEngine:
                  bitmap_head: bool = True,
                  head_sparsity: Optional[float] = None,
                  stream_weights: bool = True, top_k: int = 0,
+                 prefill_chunk: int = 0,
                  history: int = 512, params: Optional[Dict] = None,
                  device: torch.device | str | None = None):
         """``params``: the model's weights as a dict in the port's layout
@@ -95,8 +117,10 @@ class ServeEngine:
         (default ``sparsity``) before packing; 0.0 streams the exact dense
         head through the bitmap path.  ``stream_weights=False`` serves a
         dense-dispatch baseline.  ``top_k``: default top-k
-        truncation for sampled requests.  ``history``: retired requests
-        kept for inspection.
+        truncation for sampled requests.  ``prefill_chunk`` > 0 ingests
+        admitted prompts that many tokens at a time, one batched call per
+        engine step (0: the prompt walk, one token per decode step).
+        ``history``: retired requests kept for inspection.
         """
         self.device = resolve_device(device)
         missing = _unported(cfg)
@@ -162,6 +186,19 @@ class ServeEngine:
         self.kv = SlotKVCache(cfg, num_slots, max_len, device=self.device)
         self.top_k_default = top_k
         self._step_fn = build_serve_step(cfg, top_k=top_k)
+        self.prefill_fallback = (prefill_fallback(cfg) if prefill_chunk > 0
+                                 else None)
+        if self.prefill_fallback:
+            prefill_chunk = 0
+            self._warn_fallback("prefill", self.prefill_fallback,
+                                f"chunked prefill fell back to "
+                                f"teacher-forcing: {self.prefill_fallback}")
+        self.prefill_chunk = prefill_chunk
+        self.planner: Optional[PrefillPlanner] = (
+            PrefillPlanner(num_slots, prefill_chunk) if prefill_chunk
+            else None)
+        self._prefill_fn = build_prefill_step(cfg)
+        self.prefill_steps = 0
 
         self._tok = np.zeros(num_slots, np.int64)
         self._pos = np.zeros(num_slots, np.int64)
@@ -282,20 +319,64 @@ class ServeEngine:
                 kw["top_ks"] = self._topk
         return self._step_fn(self.params, self.kv.cache, tok, pos, **kw)
 
+    def _prefill(self, tokens: np.ndarray, pos: np.ndarray,
+                 lens: np.ndarray):
+        """One chunked-prefill call over the fixed (num_slots, C) batch."""
+        packed = self.packed.blocks if self.packed is not None else None
+        return self._prefill_fn(
+            self.params, self.kv.cache,
+            torch.from_numpy(tokens).to(self.device, torch.int64),
+            torch.from_numpy(pos).to(self.device, torch.int64),
+            torch.from_numpy(lens).to(self.device, torch.int64),
+            packed=packed)
+
+    def _prefill_call(self) -> None:
+        """Run the planner's next batched chunk call and route results:
+        slots whose last chunk this was flip to decode at position
+        ``len(prompt) - 1`` (the next decode step consumes the last
+        prompt token and samples the first generated one, as the walk's
+        last prompt step does); slots still mid-prefill park their
+        passenger decode write on their next unwritten position, which
+        the next chunk rewrites before anything reads it."""
+        tokens, pos, lens, finished = self.planner.next_call()
+        self._prefill(tokens, pos, lens)
+        self._sync()
+        wall = self._wall()
+        for slot in finished:
+            req = self.scheduler.active[slot]
+            ing = self._ingest[slot]
+            self._pos[slot] = len(ing) - 1
+            self._tok[slot] = ing[-1]
+            if req.t_prefill_done is None:
+                req.t_prefill_done = wall
+        for slot in np.nonzero(lens)[0]:
+            if self.planner.in_prefill(int(slot)):
+                self._pos[slot] = self.planner.next_pos(int(slot))
+        self.prefill_steps += 1
+
     def warmup(self) -> None:
-        """Run one throwaway decode step before the
-        latency clock starts, so the first request's latency does not
+        """Run one throwaway decode step (and, with chunked prefill, one
+        prefill call with every lane masked, which writes nothing) before
+        the latency clock starts, so the first request's latency does not
         include building the kernel library.  Slots are all idle here;
-        whatever the step writes at position 0 is zeroed on admission."""
+        whatever the decode step writes at position 0 is zeroed on
+        admission."""
         if self._warm:
             return
         nxt, _, _ = self._decode()
         nxt.cpu()
+        if self.prefill_chunk:
+            zeros = np.zeros(self.num_slots, np.int64)
+            self._prefill(np.zeros((self.num_slots, self.prefill_chunk),
+                                   np.int64), zeros, zeros)
+            self._sync()
         self._warm = True
 
     def step(self) -> None:
-        """One engine step: admit due requests into free slots, then run
-        the full-batch decode step and route its tokens."""
+        """One engine step: admit due requests into free slots, run at
+        most one chunked-prefill call, then the full-batch decode step
+        and its tokens' routing (skipped when every active slot is
+        mid-prefill)."""
         self.warmup()
         self._start_clock()
         now = float(self._steps)
@@ -317,14 +398,33 @@ class ServeEngine:
             if req.t_due is None:
                 req.t_due = self._wall()
             req.t_admit = self._wall()
+            if self.planner is not None:
+                self.planner.start(slot, ing)
             if len(ing) == 1:
                 req.t_prefill_done = req.t_admit
 
+        # at most one prefill call per engine step: long prompts
+        # interleave chunk calls with decode steps, never starve them
+        prefilled = self.planner is not None and self.planner.has_work
+        if prefilled:
+            self._prefill_call()
+        in_prefill = (self.planner.in_prefill if self.planner is not None
+                      else lambda s: False)
+        decoding = [s for s in self.scheduler.active if not in_prefill(s)]
+        if decoding or not prefilled:
+            self._decode_and_route(len(decoding), in_prefill)
+        self._steps += 1
+
+    def _decode_and_route(self, decoding: int, in_prefill) -> None:
+        """The full-batch decode step (mid-prefill slots ride along as
+        passengers whose output is dropped) and its tokens' routing."""
         nxt, _, _ = self._decode()
         nxt_host = nxt.cpu().numpy()
         wall = self._wall()
-        self._slot_steps += len(self.scheduler.active)
+        self._slot_steps += decoding
         for slot, req in list(self.scheduler.active.items()):
+            if in_prefill(slot):
+                continue
             ing = self._ingest[slot]
             p = int(self._pos[slot])
             self._pos[slot] = p + 1
@@ -347,7 +447,6 @@ class ServeEngine:
                 self._release_slot(slot, RequestState.DONE)
                 self._retire(req)
         self.decode_steps += 1
-        self._steps += 1
 
     def run(self) -> dict:
         """Drive until every submitted request has drained; report."""
@@ -371,24 +470,53 @@ class ServeEngine:
         head_dense = self.cfg.d_model * self.cfg.vocab_size * 4
         head_sparse = (self.lm_weight.hbm_bytes
                        if self.lm_weight is not None else head_dense)
+        # a step touches at most min(E, num_slots × top_k) experts: the
+        # modeled (gather-dispatch) figure; the capacity dispatch executes
+        # all E
+        activated = (self.num_slots * self.cfg.top_k
+                     if self.cfg.num_experts else None)
         if self.packed is not None:
-            rep = self.packed.stream_report()
+            rep = self.packed.stream_report(activated_experts=activated)
         else:
-            dense = sum(t.numel() * t.element_size()
-                        for bd in self.params["blocks"].values()
-                        for tensors in bd.values()
-                        for t in tensors.values())
+            dense = 0
+            for bd in self.params["blocks"].values():
+                for comp, tensors in bd.items():
+                    for name, t in tensors.items():
+                        routed = (t.shape[1] if (comp, name) in ROUTED_EXPERT
+                                  and t.dim() == 4 else 0)
+                        dense += int(round(t.numel() * t.element_size()
+                                           * activated_scale(routed,
+                                                             activated)))
             rep = {"sparse_bytes_per_step": dense,
                    "dense_bytes_per_step": dense, "reduction": 1.0,
                    "packed_tensors": 0, "fallback_tensors": 0,
-                   "activated_experts": None,
+                   "activated_experts": activated,
                    "fallbacks": {"*": self.stream_fallback
-                                 or "stream_weights=False"}}
+                                 or "stream_weights=False"},
+                   "device_sparse_bytes_per_step": dense,
+                   "device_dense_bytes_per_step": dense}
         sparse = rep["sparse_bytes_per_step"] + head_sparse
         dense = rep["dense_bytes_per_step"] + head_dense
         return {**rep, "sparse_bytes_per_step": sparse,
                 "dense_bytes_per_step": dense,
-                "reduction": dense / sparse if sparse else 1.0}
+                "reduction": dense / sparse if sparse else 1.0,
+                "device_sparse_bytes_per_step": (
+                    rep["device_sparse_bytes_per_step"] + head_sparse),
+                "device_dense_bytes_per_step": (
+                    rep["device_dense_bytes_per_step"] + head_dense)}
+
+    def prefill_report(self) -> dict:
+        """The prefill section: chunk-call accounting and the step split."""
+        rep = {"enabled": self.prefill_chunk > 0,
+               "fallback": self.prefill_fallback,
+               "prefill_steps": self.prefill_steps,
+               "decode_steps": self.decode_steps}
+        if self.planner is not None:
+            rep.update(self.planner.report())
+        else:
+            rep.update({"chunk": 0, "calls": 0, "tokens_prefilled": 0,
+                        "in_flight": 0, "lane_utilization": None})
+        return rep
 
     def report(self) -> dict:
         """Serving statistics, under the reference's ``report()`` key
@@ -415,6 +543,7 @@ class ServeEngine:
             "head_compression": self.head_compression,
             "head_fallback": self.head_fallback,
             "weight_stream": self.weight_stream_report(),
+            "prefill": self.prefill_report(),
             "paging": {"paged": False, "fallback": None,
                        "reserved_kv_bytes": reserved,
                        "contiguous_kv_bytes": reserved,

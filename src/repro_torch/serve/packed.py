@@ -1,15 +1,27 @@
 """Whole-stack packed model: prune once, pack once, stream the bitmap
 format on every decode step.
 
-Port of ``repro/serve/packed.py`` (its 2-D period-stacked path).
-``pack_model`` packs every dispatchable decode-step GEMM operand of the
-params tree into one period-stacked ``BitmapWeight`` per tensor,
-choosing the largest valid (BK, BN) tile per shape, and records a
-manifest row per tensor: packed, or served dense with the reason why.
+Port of ``repro/serve/packed.py`` (unsharded).  ``pack_model`` packs
+every dispatchable GEMM operand of the params tree, choosing the largest
+valid (BK, BN) tile per shape, and records a manifest row per tensor:
+packed, or served dense with the reason why.
+
+* Period-stacked 2-D projections (``pack_bitmap_stacked``): attention
+  ``wq/wk/wv/wo``, MLP ``w_gate/w_up/w_down``, the MoE ``router`` (and
+  the SSM projections, served once those mixers are ported).
+* Group-stacked tensors (``pack_bitmap_experts``): the MoE expert
+  stacks ``w_gate/w_up/w_down``, (P, E, K, N), whose per-period
+  (E, ...) weight goes through ``kernels/ops.bitmap_spmm_grouped``
+  (and rwkv's ``mix_B``, which shares the layout).
+
 Packing is lossless (budget = the largest tile non-zero count), so the
 packed stream computes what dense dispatch of the same pruned weights
-computes.  Group-stacked tensors (MoE experts, rwkv ``mix_B``) and
-sharded layouts are not ported yet.
+computes.  Router-gated expert stacks count per *activated* expert in
+the modeled bytes (``stream_report(activated_experts=...)`` scales them
+by ``min(E, activated) / E``, packed or not), as the reference models a
+gather dispatch.  The capacity dispatch both packages run *executes* all
+E experts every step: the modeled figure is not the executed one.
+Sharded layouts are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,10 +30,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.sparse.format import BitmapWeight, pack_bitmap_stacked
+from repro_torch.sparse.format import (BitmapWeight, pack_bitmap_experts,
+                                       pack_bitmap_stacked)
 
 # (component, tensor) pairs with a compressed dispatch path in the decode
-# step; everything else records a fallback reason in the manifest
+# step.  2-D entries are period-stacked projections; GROUPED entries are
+# (P, G, K, N) stacks dispatched per group.  Everything else records a
+# fallback reason in the manifest.
 DISPATCHABLE_2D = {
     ("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
     ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"),
@@ -33,6 +48,22 @@ DISPATCHABLE_2D = {
     ("rwkv", "mix_A"),
     ("rwkv_cm", "cm_k"), ("rwkv_cm", "cm_v"), ("rwkv_cm", "cm_r"),
 }
+DISPATCHABLE_GROUPED = {
+    ("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down"),
+    ("rwkv", "mix_B"),
+}
+# router-gated expert stacks: per-step traffic scales with *activated*
+# experts (rwkv's mix_B is group-stacked but always fully active)
+ROUTED_EXPERT = {("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down")}
+
+
+def activated_scale(experts: int, activated: Optional[int]) -> float:
+    """The accounting rule: router-gated expert stacks stream
+    ``min(E, activated)`` of their ``E`` stored experts per step
+    (``experts == 0`` or ``activated is None``: no scaling)."""
+    if not experts or activated is None:
+        return 1.0
+    return min(experts, activated) / experts
 
 
 def choose_block(k: int, n: int, cap: int = 128
@@ -48,8 +79,11 @@ def choose_block(k: int, n: int, cap: int = 128
 
 @dataclasses.dataclass
 class PackEntry:
-    """Manifest row: one tensor's pack decision and its modeled per-step
-    bytes (all periods).  ``layout`` is "stacked" or "dense"."""
+    """Manifest row: one tensor's pack decision and its stored-stack
+    bytes (all periods, all experts).  ``layout`` is "stacked"
+    (period-stacked 2-D), "grouped" (expert/group stack) or "dense"
+    (fallback); ``experts`` is the stored expert count of a router-gated
+    stack (0 otherwise)."""
 
     path: str
     shape: Tuple[int, ...]
@@ -60,6 +94,7 @@ class PackEntry:
     sparse_bytes: int                # streamed per step on the chosen path
     dense_bytes: int
     layout: str = "dense"
+    experts: int = 0
 
 
 @dataclasses.dataclass
@@ -84,48 +119,76 @@ class PackedModel:
                 for c, tensors in bd.items()
                 for n, bw in tensors.items() if bw is not None]
 
-    def stream_report(self) -> Dict:
+    def stream_report(self, activated_experts: Optional[int] = None
+                      ) -> Dict:
         """Modeled per-step weight bytes across the stack (no head — the
-        engine adds its head term on top)."""
-        sparse = sum(e.sparse_bytes for e in self.manifest)
-        dense = sum(e.dense_bytes for e in self.manifest)
+        engine adds its head term on top).  ``activated_experts`` (the
+        engine passes ``num_slots × top_k``) scales router-gated expert
+        stacks by ``min(E, activated) / E`` on the sparse and the dense
+        side alike."""
+        sparse = sum(entry_device_bytes(e, "sparse_bytes", activated_experts)
+                     for e in self.manifest)
+        dense = sum(entry_device_bytes(e, "dense_bytes", activated_experts)
+                    for e in self.manifest)
         return {
             "sparse_bytes_per_step": sparse,
             "dense_bytes_per_step": dense,
             "reduction": dense / sparse if sparse else 1.0,
             "packed_tensors": len(self.packed_entries),
             "fallback_tensors": len(self.fallback_entries),
-            "activated_experts": None,
+            "activated_experts": activated_experts,
             "fallbacks": {e.path: e.reason for e in self.fallback_entries},
+            "device_sparse_bytes_per_step": sparse,
+            "device_dense_bytes_per_step": dense,
         }
+
+
+def entry_device_bytes(e: PackEntry, attr: str,
+                       activated: Optional[int]) -> int:
+    """One manifest row's per-step bytes on the device:
+    ``int(round(bytes × activated_scale))`` (unsharded, so the device
+    holds the whole tensor)."""
+    return int(round(getattr(e, attr) * activated_scale(e.experts,
+                                                        activated)))
 
 
 def _pack_leaf(path: str, comp: str, name: str, w: torch.Tensor, cap: int,
                cache_dense: bool) -> Tuple[PackEntry, Optional[BitmapWeight]]:
     dense_bytes = w.numel() * w.element_size()
     sparsity = 1.0 - int(torch.count_nonzero(w)) / max(w.numel(), 1)
+    key = (comp, name)
+    # the activated-expert accounting applies to router-gated stacks
+    # whether they pack or fall back
+    routed = w.shape[1] if key in ROUTED_EXPERT and w.dim() == 4 else 0
 
     def fallback(reason: str) -> Tuple[PackEntry, None]:
         return PackEntry(path=path, shape=tuple(w.shape), packed=False,
                          reason=reason, block=None, sparsity=sparsity,
                          sparse_bytes=dense_bytes,
-                         dense_bytes=dense_bytes), None
+                         dense_bytes=dense_bytes, experts=routed), None
 
-    if (comp, name) not in DISPATCHABLE_2D:
-        # every 2-D GEMM operand of the decode step is listed above; the
-        # rest are elementwise/state/conv tensors with no matmul to compress
+    if key in DISPATCHABLE_GROUPED:
+        if w.dim() != 4:             # (P, G, K, N) = period × group stack
+            return fallback(f"group stack with unexpected rank "
+                            f"(ndim={w.dim()}, want 4)")
+        layout, pack = "grouped", pack_bitmap_experts
+    elif key in DISPATCHABLE_2D:
+        if w.dim() != 3:             # (P, K, N) = period-stacked projection
+            return fallback(f"not a 2-D projection (ndim={w.dim() - 1})")
+        layout, pack = "stacked", pack_bitmap_stacked
+    else:
+        # every GEMM operand of the decode step is listed above; the rest
+        # are elementwise/state/conv tensors with no matmul to compress
         return fallback("not a GEMM operand (elementwise/state/conv tensor)")
-    if w.dim() != 3:                 # (P, K, N) = period-stacked projection
-        return fallback(f"not a 2-D projection (ndim={w.dim() - 1})")
-    _, k, n = w.shape
+    k, n = w.shape[-2:]
     block = choose_block(k, n, cap)
     if block is None:
         return fallback(f"no (BK, BN) tile divides ({k}, {n}) with BN % 8")
-    bw = pack_bitmap_stacked(w, block=block, cache_dense=cache_dense)
+    bw = pack(w, block=block, cache_dense=cache_dense)
     return PackEntry(path=path, shape=tuple(w.shape), packed=True, reason="",
                      block=block, sparsity=sparsity,
                      sparse_bytes=bw.hbm_bytes, dense_bytes=dense_bytes,
-                     layout="stacked"), bw
+                     layout=layout, experts=routed), bw
 
 
 def pack_model(params: Dict, cap: int = 128,

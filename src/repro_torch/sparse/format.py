@@ -65,7 +65,10 @@ class BitmapWeight:
             self.packed_bits.long()].sum())
 
     def period(self, p: int) -> "BitmapWeight":
-        """The p-th matrix of a period-stacked weight (views, no copy)."""
+        """The p-th entry along the leading stack axis (views, no copy):
+        a period of a period-stacked weight, the (E, ...)-leading
+        weight of one period of an expert stack, or one expert of that
+        (the reference's ``group_slice``)."""
         return BitmapWeight(
             packed_bits=self.packed_bits[p], values=self.values[p],
             row_start=self.row_start[p], shape=self.shape, block=self.block,
@@ -162,30 +165,76 @@ def unpack_bitmap(bw: BitmapWeight) -> torch.Tensor:
     return dense.permute(0, 2, 1, 3).reshape(bw.shape)
 
 
+# elements packed per pass over a stack: bounds the int64 temporaries of
+# ``_pack_tiles`` (about 24 bytes per element) on a multi-GB expert stack
+_PACK_CHUNK = 1 << 26
+
+
 def pack_bitmap_stacked(w: torch.Tensor, block: Tuple[int, int],
                         cache_dense: bool = False) -> BitmapWeight:
     """Pack a period-stacked (P, K, N) tensor into one BitmapWeight whose
     tensors carry a leading P axis, all periods sharing one budget (the
-    largest tile non-zero count across periods)."""
+    largest tile non-zero count across periods).  The matrices are
+    packed several at a time, each exactly as ``pack_bitmap`` would."""
     assert w.dim() == 3, tuple(w.shape)
     p, k, n = w.shape
-    budget = max(1, max(int((_tiles(w[i], block) != 0).sum((-1, -2)).max())
-                        for i in range(p)))
-    per = [pack_bitmap(w[i], block=block, budget=budget,
-                       cache_dense=cache_dense) for i in range(p)]
-    return BitmapWeight(
-        packed_bits=torch.stack([q.packed_bits for q in per]),
-        values=torch.stack([q.values for q in per]),
-        row_start=torch.stack([q.row_start for q in per]),
-        shape=(k, n), block=tuple(block),
-        dense_cache=(torch.stack([q.dense_cache for q in per])
-                     if cache_dense else None))
+    bk, bn = block
+    assert k % bk == 0 and n % bn == 0 and bn % 8 == 0, (tuple(w.shape),
+                                                         block)
+    kt, nt = k // bk, n // bn
+    step = max(1, _PACK_CHUNK // (k * n))
+
+    def tiles(lo: int) -> torch.Tensor:      # (c, KT, NT, BK, BN)
+        return w[lo:lo + step].reshape(-1, kt, bk, nt, bn).permute(
+            0, 1, 3, 2, 4)
+
+    starts = range(0, p, step)
+    budget = max(1, max(int((tiles(lo) != 0).sum((-1, -2)).max())
+                        for lo in starts))
+    parts = []
+    for lo in starts:
+        t = tiles(lo)
+        packed = _pack_tiles(t.reshape(-1, nt, bk, bn), budget)
+        parts.append([a.view(t.shape[0], kt, *a.shape[1:]) for a in packed])
+    packed_bits, values, row_start = (torch.cat(a) for a in zip(*parts))
+    return BitmapWeight(packed_bits=packed_bits, values=values,
+                        row_start=row_start, shape=(k, n),
+                        block=tuple(block),
+                        dense_cache=(w.clone(memory_format=torch.contiguous_format)
+                                     if cache_dense else None))
 
 
 def unpack_bitmap_stacked(bw: BitmapWeight) -> torch.Tensor:
-    """Dense (P, K, N) rendering of a period-stacked BitmapWeight."""
+    """Dense rendering of a stacked BitmapWeight: recurses over every
+    leading stack axis (one for period-stacked tensors, two for the
+    (P, E) expert layout), returning ``(*stack_axes, K, N)``."""
     if bw.values.dim() == 3:
         return unpack_bitmap(bw)
     return torch.stack([unpack_bitmap_stacked(dataclasses.replace(
         bw.period(i), dense_cache=None))
         for i in range(bw.packed_bits.shape[0])])
+
+
+def pack_bitmap_experts(w: torch.Tensor, block: Tuple[int, int],
+                        cache_dense: bool = False) -> BitmapWeight:
+    """Pack a period-stacked expert stack (P, E, K, N) into one
+    BitmapWeight whose tensors carry leading (P, E) axes: the (P·E, K, N)
+    stack packed as one, with one budget for all of it, then reshaped.
+    ``period(p)`` is then the (E, ...)-leading weight that
+    ``kernels/ops.bitmap_spmm_grouped`` takes."""
+    assert w.dim() == 4, tuple(w.shape)
+    p, e, k, n = w.shape
+    flat = pack_bitmap_stacked(w.reshape(p * e, k, n), block=block,
+                               cache_dense=cache_dense)
+    return BitmapWeight(
+        packed_bits=flat.packed_bits.view(p, e, *flat.packed_bits.shape[1:]),
+        values=flat.values.view(p, e, *flat.values.shape[1:]),
+        row_start=flat.row_start.view(p, e, *flat.row_start.shape[1:]),
+        shape=(k, n), block=tuple(block),
+        dense_cache=(flat.dense_cache.view(p, e, k, n)
+                     if cache_dense else None))
+
+
+def unpack_bitmap_experts(bw: BitmapWeight) -> torch.Tensor:
+    """Dense (P, E, K, N) rendering of an expert-stacked BitmapWeight."""
+    return unpack_bitmap_stacked(bw)

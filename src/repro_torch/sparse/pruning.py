@@ -9,11 +9,15 @@ neighbouring order statistics and interpolated the way ``jnp.quantile``
 does it, in float32.  An order statistic comes from a 16-bit radix
 histogram of the magnitudes' bit patterns and a sort of the one bucket
 that holds it, which uses the whole card where ``kthvalue`` would run
-one thread block over the whole input.
+one thread block over the whole input.  The histogram is summed over the
+leaves, a piece at a time, and the bucket gathered from each: the
+magnitudes are never concatenated, so a model of billions of prunable
+weights (granite-moe: 3.2 G) needs no tensor above 2**28 elements.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Sequence,
+                    Tuple)
 
 import torch
 
@@ -51,24 +55,60 @@ def _is_prunable(path: Tuple[str, ...], leaf: torch.Tensor,
     return "embed" not in keystr(path).lower()
 
 
+# elements per piece of a leaf: bounds the float32 and int32 temporaries
+_PIECE = 1 << 28
+_BUCKETS = 1 << 15       # the top 16 bits of a non-negative float32
+
+
+def _magnitudes(tensors: Sequence[torch.Tensor]) -> Iterator[torch.Tensor]:
+    """Flat float32 |x| of each tensor, a piece at a time."""
+    for t in tensors:
+        for piece in t.detach().reshape(-1).split(_PIECE):
+            yield piece.abs().float()
+
+
+def _bucket(mag: torch.Tensor) -> torch.Tensor:
+    # non-negative floats order as their int32 bit patterns do
+    return mag.view(torch.int32) >> 16
+
+
+class OrderStats:
+    """Order statistics of the magnitudes of several tensors, as if they
+    were one flat tensor.  A 16-bit radix histogram over all of them is
+    built once; ``kth`` sorts only the bucket that holds rank k."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self.tensors = list(tensors)
+        self.n = sum(t.numel() for t in self.tensors)
+        device = self.tensors[0].device
+        hist = torch.zeros(_BUCKETS, dtype=torch.int64, device=device)
+        for mag in _magnitudes(self.tensors):
+            hist += torch.bincount(_bucket(mag), minlength=_BUCKETS)
+        self.cum = torch.cumsum(hist, 0)
+
+    def kth(self, k: int) -> torch.Tensor:
+        """The k-th smallest (1-based) magnitude."""
+        if not 1 <= k <= self.n:
+            raise IndexError(f"k={k} outside [1, {self.n}]")
+        bucket = int(torch.searchsorted(
+            self.cum, torch.tensor(k, device=self.cum.device)))
+        below = int(self.cum[bucket - 1]) if bucket > 0 else 0
+        vals = torch.cat([m[_bucket(m) == bucket]
+                          for m in _magnitudes(self.tensors)])
+        return torch.sort(vals).values[k - below - 1]
+
+
 def kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
-    """The k-th smallest (1-based) of a 1-D non-negative float32 tensor.
-
-    Non-negative floats order as their int32 bit patterns do, so the top
-    16 bits pick a bucket; only the bucket holding rank k is sorted."""
-    if not 1 <= k <= x.numel():
-        raise IndexError(f"k={k} outside [1, {x.numel()}]")
-    top = x.view(torch.int32) >> 16
-    cum = torch.cumsum(torch.bincount(top, minlength=1 << 15), 0)
-    bucket = int(torch.searchsorted(cum, torch.tensor(k, device=x.device)))
-    below = int(cum[bucket - 1]) if bucket > 0 else 0
-    return torch.sort(x[top == bucket]).values[k - below - 1]
+    """The k-th smallest (1-based) of a 1-D non-negative float32 tensor."""
+    return OrderStats([x]).kth(k)
 
 
-def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+def quantile(x: torch.Tensor | OrderStats, q: float) -> torch.Tensor:
     """``jnp.quantile(x, q)`` (method "linear") of a 1-D non-negative
-    float32 tensor, with float32 index arithmetic as the reference."""
-    n = x.numel()
+    float32 tensor (or of the magnitudes an ``OrderStats`` holds), with
+    float32 index arithmetic as the reference."""
+    stats = x if isinstance(x, OrderStats) else OrderStats([x])
+    n = stats.n
     pos = torch.tensor(q, dtype=torch.float32) * (
         torch.tensor(float(n), dtype=torch.float32) - 1)
     lo, hi = torch.floor(pos), torch.ceil(pos)
@@ -76,9 +116,9 @@ def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     w_lo = 1 - w_hi
     lo_i = int(min(max(lo.item(), 0), n - 1))
     hi_i = int(min(max(hi.item(), 0), n - 1))
-    v_lo = kth_smallest(x, lo_i + 1).cpu()
-    v_hi = v_lo if hi_i == lo_i else kth_smallest(x, hi_i + 1).cpu()
-    return (v_lo * w_lo + v_hi * w_hi).to(x.device)
+    v_lo = stats.kth(lo_i + 1).cpu()
+    v_hi = v_lo if hi_i == lo_i else stats.kth(hi_i + 1).cpu()
+    return (v_lo * w_lo + v_hi * w_hi).to(stats.cum.device)
 
 
 def global_l1_prune(params: Dict, sparsity: float,
@@ -91,10 +131,7 @@ def global_l1_prune(params: Dict, sparsity: float,
                 if _is_prunable(p, l, predicate)]
     if not prunable:
         return params
-    mags = torch.cat([l.detach().abs().reshape(-1).float()
-                      for _, l in prunable])
-    thresh = quantile(mags, sparsity)
-    del mags
+    thresh = quantile(OrderStats([l for _, l in prunable]), sparsity)
     paths = {p for p, _ in prunable}
 
     def prune_leaf(path, leaf):

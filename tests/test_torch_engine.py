@@ -162,10 +162,30 @@ def test_engine_rejects_and_counts():
 
 
 def test_unported_blocks_raise_typed():
-    for arch in ("granite-moe-3b-a800m", "jamba-v0.1-52b", "rwkv6-3b",
-                 "musicgen-medium"):
+    for arch in ("jamba-v0.1-52b", "rwkv6-3b", "musicgen-medium"):
         with pytest.raises(NotImplementedError, match="not ported"):
             PtEngine(pt_smoke(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "moonshot-v1-16b-a3b"])
+def test_bridge_carries_moe_leaves_unchanged(arch):
+    """The router (P, d, E) and the expert stacks (P, E, d, f) cross the
+    bridge with their paths, shapes, types and values."""
+    cfg = ref_smoke(arch)
+    params = jax.tree.map(np.asarray,
+                          ref_init_params(jax.random.PRNGKey(0), cfg))
+    pt = params_from_numpy(params)
+    moe, pt_moe = params["blocks"]["b0"]["moe"], pt["blocks"]["b0"]["moe"]
+    p, d, e, f = cfg.num_periods, cfg.d_model, cfg.num_experts, cfg.d_ff
+    assert moe["router"].shape == (p, d, e)
+    assert moe["w_gate"].shape == (p, e, d, f)
+    assert moe["w_down"].shape == (p, e, f, d)
+    assert set(pt_moe) == set(moe)
+    for name, a in moe.items():
+        b = pt_moe[name]
+        assert b.dtype == torch.float32 and b.is_contiguous()
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
 
 
 def test_no_device_given_raises_without_cuda(monkeypatch):

@@ -132,3 +132,58 @@ def test_kth_smallest_exact_with_ties_and_zeros():
         assert pt_pruning.kth_smallest(t, k).item() == xs[k - 1]
     with pytest.raises(IndexError):
         pt_pruning.kth_smallest(t, 0)
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((2, 5, 64, 32), (64, 32)), ((1, 8, 32, 64), (32, 64)),
+    ((2, 5, 64, 32), (16, 8))])
+@pytest.mark.parametrize("sparsity", [0.0, 0.5, 0.95])
+def test_pack_bitmap_experts_byte_equal(shape, block, sparsity):
+    """Expert stacks (P, E, K, N), blocks from ``choose_block`` and one
+    BN = 8 case; experts at different densities so the one budget is
+    the stack's largest tile count."""
+    p, e, k, n = shape
+    w = np.stack([_weight((e, k, n), min(0.99, sparsity + 0.02 * i), seed=i)
+                  for i in range(p)])
+    ref = ref_format.pack_bitmap_experts(w, block=block)
+    pt = pt_format.pack_bitmap_experts(torch.from_numpy(w), block=block)
+    _assert_pack_equal(ref, pt)
+    assert tuple(pt.values.shape[:2]) == (p, e)
+    dense = pt_format.unpack_bitmap_experts(pt).numpy()
+    np.testing.assert_array_equal(
+        np.asarray(ref_format.unpack_bitmap_experts(ref)), dense)
+    np.testing.assert_array_equal(dense, w)
+    cached = pt_format.pack_bitmap_experts(torch.from_numpy(w), block=block,
+                                           cache_dense=True)
+    assert torch.equal(cached.dense_cache, torch.from_numpy(w))
+    one = cached.period(p - 1)          # the (E, ...) weight of a period
+    assert one.values.dim() == 4 and torch.equal(one.dense_cache,
+                                                 torch.from_numpy(w[-1]))
+
+
+def test_pack_bitmap_stacked_in_several_passes(monkeypatch):
+    """A stack larger than one packing pass packs byte-equal to one pass."""
+    w = np.stack([_weight((64, 32), 0.3 + 0.1 * i, seed=i) for i in range(5)])
+    whole = pt_format.pack_bitmap_stacked(torch.from_numpy(w), (32, 16))
+    monkeypatch.setattr(pt_format, "_PACK_CHUNK", 2 * 64 * 32)
+    pieces = pt_format.pack_bitmap_stacked(torch.from_numpy(w), (32, 16))
+    _assert_pack_equal(whole, pieces)
+    _assert_pack_equal(ref_format.pack_bitmap_stacked(w, block=(32, 16)),
+                       pieces)
+
+
+def test_global_prune_over_expert_stacks_in_pieces(monkeypatch):
+    """granite-moe smoke, its leaves cut into pieces smaller than one
+    leaf: the histogram and the bucket gathered piece by piece give the
+    reference's mask."""
+    cfg = ref_smoke("granite-moe-3b-a800m")
+    np_params = jax.tree.map(np.asarray,
+                             ref_init_params(jax.random.PRNGKey(3), cfg))
+    ref = jax.tree.map(np.asarray, ref_pruning.global_l1_prune(
+        jax.tree.map(jax.numpy.asarray, np_params), 0.5))
+    monkeypatch.setattr(pt_pruning, "_PIECE", 1000)
+    pt = pt_pruning.global_l1_prune(params_from_numpy(np_params), 0.5)
+    ref_items = jax.tree_util.tree_leaves_with_path(ref)
+    for (path, a), (_, b) in zip(ref_items, pt_pruning.tree_items(pt)):
+        np.testing.assert_array_equal(a, b.numpy(),
+                                      err_msg=jax.tree_util.keystr(path))

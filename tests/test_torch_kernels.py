@@ -10,13 +10,16 @@ import torch
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.kernels.bitmap_spmm import bitmap_spmm as ref_kernel
 from repro.kernels.bitmap_spmm import hbm_traffic_model as ref_traffic
 from repro.sparse import pack_bitmap as ref_pack
+from repro.sparse import pack_bitmap_experts as ref_pack_experts
 from repro_torch.kernels import LAUNCHES, ops, reset_launches
 from repro_torch.kernels import bitmap_spmm as pt_kernel
 from repro_torch.sparse import pack_bitmap as pt_pack
+from repro_torch.sparse import pack_bitmap_experts as pt_pack_experts
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -135,3 +138,52 @@ def test_hbm_traffic_model_matches_reference():
 def test_k_splits_fill_the_card_without_empty_splits(kt, nt, m, expect):
     splits = pt_kernel.k_splits(kt, nt, m, sms=132)
     assert splits == expect and 1 <= splits <= kt
+
+
+@pytest.mark.parametrize("g", [1, 5, 8])
+@pytest.mark.parametrize("m", [1, 4, 12])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_bitmap_spmm_grouped_matches_reference(g, m, dname):
+    """The port's grouped dispatch on the CPU (its plain version) against
+    the reference's grouped kernel in interpret mode and its oracle."""
+    k, n, block = 64, 48, (32, 24)
+    r = np.random.default_rng(100 * g + m)
+    w = r.standard_normal((1, g, k, n)).astype(np.float32)
+    w *= r.random(w.shape) >= np.linspace(0.3, 0.9, g)[None, :, None, None]
+    x = r.standard_normal((g, m, k)).astype(np.float32)
+    jdt, tdt = DTYPES[dname]
+    ref_bw = jax.tree.map(lambda a: a[0], ref_pack_experts(
+        np.asarray(jnp.asarray(w, jdt)), block=block))
+    pt_bw = pt_pack_experts(torch.from_numpy(w).to(tdt), block=block
+                            ).period(0)
+    rx, px = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+    reset_launches()
+    out = ops.bitmap_spmm_grouped(px, pt_bw)
+    assert LAUNCHES["bitmap_spmm_grouped"] == 0
+    assert out.dtype == px.dtype and out.shape == (g, m, n)
+    for impl in ("pallas_interpret", "xla"):
+        _close(_np(out), ref_ops.bitmap_spmm_grouped(rx, ref_bw, impl=impl),
+               k, dname)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.bitmap_spmm_grouped(px, pt_bw, impl="cuda")
+
+
+def test_grouped_traffic_model_is_g_calls_of_one_group():
+    w = np.random.default_rng(0).standard_normal((1, 6, 256, 128)).astype(
+        np.float32)
+    bw = pt_pack_experts(torch.from_numpy(w), block=(128, 128)).period(0)
+    one = pt_kernel.hbm_traffic_model((4, 256), bw.period(0))
+    six = pt_kernel.hbm_traffic_model((6, 4, 256), bw)
+    for key in ("x_bytes", "out_bytes", "w_sparse_bytes", "w_dense_bytes"):
+        assert six["components"][key] == 6 * one["components"][key], key
+    assert six["sparse_bytes"] == 6 * one["sparse_bytes"]
+
+
+@pytest.mark.parametrize("g,kt,nt,m,expect", [
+    (40, 12, 4, 4, 4),      # granite gate/up at decode: 160 column tiles
+    (40, 4, 12, 4, 2),      # granite down: 480 column tiles
+    (40, 12, 4, 64, 1),     # prefill M = 64: 1,280 blocks already
+    (1, 16, 16, 4, 16),     # one group: K1's split
+])
+def test_k_splits_count_the_groups(g, kt, nt, m, expect):
+    assert pt_kernel.k_splits(kt, nt, m, sms=132, groups=g) == expect

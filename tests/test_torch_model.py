@@ -139,7 +139,9 @@ def _bridged(arch, dname, sparsity=0.5, seed=0):
         jax.tree.map(np.asarray, params))
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-4b",
+                                  "granite-moe-3b-a800m",
+                                  "moonshot-v1-16b-a3b"])
 def test_param_shapes_and_init_rules(arch):
     cfg, pcfg = ref_smoke(arch), pt_smoke(arch)
     ref_shapes = jax.tree.map(tuple, ref_M.param_shapes(cfg),
@@ -160,12 +162,14 @@ def test_param_shapes_and_init_rules(arch):
             assert abs(float(leaf.std()) / float(a.std()) - 1) < 0.25
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-4b",
+                                  "granite-moe-3b-a800m"])
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 def test_decode_step_logits_match(arch, packed, dname):
     """≥ 8 decode steps at per-slot positions (gemma3's sliding-window
-    ring wraps), packed and dense, logits and caches held step by step."""
+    ring wraps; granite-moe's expert stacks through the grouped
+    dispatch), packed and dense, logits and caches held step by step."""
     cfg, pcfg, params, pt_params = _bridged(arch, dname)
     ref_pk = pt_pk = ref_lm = pt_lm = None
     if packed:
