@@ -9,10 +9,11 @@ and the CUDA toolkit (``nvcc``):
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. Card and build: prints the card's name and power limit, then builds
-   the CUDA kernels from ``src/repro_torch/kernels/csrc`` for ``sm_90a``
-   (one library, two entry points: ``bitmap_spmm`` and
-   ``bitmap_spmm_grouped``; registers, shared memory and spills from
-   ptxas).
+   every CUDA source in ``src/repro_torch/kernels/csrc`` for ``sm_90a``
+   (one ``nvcc`` per source, all at once, linked into one library with
+   five entry points: ``bitmap_spmm``, ``bitmap_spmm_grouped``,
+   ``flash_attention``, ``block_sparse`` and ``nm_spmm``; registers,
+   shared memory and spills from ptxas).
 2. Kernels against their plain versions: ``bitmap_spmm`` (K1) at every
    olmo-1b decode shape (rows M in {1, 4, 8, 130}, weights pruned to
    {0, 0.5, 0.75, 0.95}) and at granite-moe-3b-a800m's attention and
@@ -43,13 +44,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    all 32 layers' expert stacks at M = 4, K1 over granite's 160
    projections, a whole decode step's 256 launches, and the card's idle
    share under ``torch.profiler``.
-5. Library yardsticks for the kernels still to port, called nowhere in
-   the port: ``scaled_dot_product_attention`` at olmo-1b's full-sequence
-   shape (K2) and ``torch.matmul`` at olmo-1b's gate/up decode shape (K3,
-   K4).
+5. Kernels K2-K4 against their plain versions and timed, through the
+   kernel layer's entry points (``ops.flash_attention``,
+   ``ops.block_sparse_matmul``, ``kernels.nm_spmm.nm_spmm``) at
+   full-width shapes, the counts set to 0 just before the calls and
+   read just after: ``flash_attention`` (K2) at olmo-1b's heads (B 2,
+   16 heads, S 2048 and a ragged 2047, D 128, causal; bf16 and float32)
+   and gemma3-4b's (B 1, 8 query / 4 KV heads, S 4096, D 256, window
+   1024 and none; bf16 and float32); ``block_sparse_matmul`` (K3) on
+   olmo-1b's gate/up and down shapes with seeded block masks (p_zero
+   0.5, 0.75; blocks 128 and 64) and on layer 0's ``w_down`` after
+   ``global_l1_prune(0.5)``; ``nm_spmm`` (K4) on layer 0's ``w_gate`` /
+   ``w_down`` pruned 1:4 and 2:4; rows M in {4, 130, 2048}, float32 and
+   bf16.  Each output must lie within atol + 1e-2·|plain| of the plain
+   version, atol the smaller of the reference sweep's (K2: 2e-3 float32
+   / 5e-2 bf16; K3 / K4: as phase 2) and 1e-3 (float32) / 5e-2 (bf16)
+   times the plain output's rms (per query row for K2, whole for K3 /
+   K4), and a zero output must fail that limit at most non-zero
+   elements.  Then each is
+   timed in bf16 (K2 at each shape, K3 / K4 at M = 4 and 2048) beside
+   its bound, its plain version and the library call
+   (``scaled_dot_product_attention``, ``torch.matmul`` on the dense
+   bf16 weight), none of which the port calls.
 
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
-its operations over 989 TFLOP/s (bf16), with this run's non-zeros.  The
+its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
+score pairs (K2), surviving blocks (K3) or kept values (K4).  The
 line before the last is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside the
 repository, it exits non-zero and prints no result.
@@ -81,9 +101,28 @@ ROWS = (1, 4, 8, 130)
 GRANITE_SPARSITIES = (0.0, 0.5, 0.95)
 GRANITE_ROWS = (1, 4, 64, 130)
 ATOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
-SOURCE = "src/repro_torch/kernels/csrc/bitmap_spmm.cu"
+ATTN_ATOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+# Phase 5 also scales each limit to what it compares: atol this share of
+# the rms of the plain output (per (batch, head, query) row for K2, over
+# the whole output for K3 / K4), so that a zero output fails.
+SCALED_ATOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+RTOL = 1e-2
+MATMUL_ROWS = (4, 130, 2048)
+BLOCK_P_ZERO = (0.5, 0.75)
+BLOCKS = ((128, 128), (64, 64))
+NM_PATTERNS = ((1, 4), (2, 4))
+L2_BYTES = 50e6
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"bitmap_spmm": CSRC + "bitmap_spmm.cu",
+           "bitmap_spmm_grouped": CSRC + "bitmap_spmm.cu",
+           "flash_attention": CSRC + "flash_attention.cu",
+           "block_sparse_matmul": CSRC + "block_sparse.cu",
+           "nm_spmm": CSRC + "nm_spmm.cu"}
 REPLACES = {"bitmap_spmm": "src/repro/kernels/bitmap_spmm.py:74",
-            "bitmap_spmm_grouped": "src/repro/kernels/bitmap_spmm.py:167"}
+            "bitmap_spmm_grouped": "src/repro/kernels/bitmap_spmm.py:167",
+            "flash_attention": "src/repro/kernels/flash_attention.py:69",
+            "block_sparse_matmul": "src/repro/kernels/block_sparse.py:49",
+            "nm_spmm": "src/repro/kernels/nm_spmm.py:52"}
 
 
 def sync() -> None:
@@ -139,7 +178,8 @@ def bound_ms(moved: float, ops: float):
 
 
 def card_and_build() -> str:
-    from repro_torch.kernels import bitmap_spmm
+    from repro_torch.kernels import (_build, bitmap_spmm, block_sparse,
+                                     flash_attention, nm_spmm)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -148,17 +188,20 @@ def card_and_build() -> str:
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) | "
           f"device {torch.cuda.get_device_name(0)} | count "
           f"{torch.cuda.device_count()}")
-    built = bitmap_spmm.build()
-    print(f"build: {built.path.relative_to(ROOT)} in {built.seconds:.1f}s"
+    built = _build.build()
+    print(f"build: {built.path.relative_to(ROOT)} from "
+          f"{[src.name for src in _build.sources()]} in {built.seconds:.1f}s "
+          f"(one nvcc per source, together, then one link)"
           if built.seconds else f"build: {built.path.name} already built")
     for line in built.log.splitlines():
         if "Compiling entry" in line:
             print(f"  {line.split(chr(39))[1][:90]}")
         elif "Used" in line or "spill" in line:
             print(f"    {line.strip()}")
-    lib = bitmap_spmm._library()
-    print(f"entry points: {lib.bitmap_spmm_launch.__name__}, "
-          f"{lib.bitmap_spmm_grouped_launch.__name__}")
+    entries = [bitmap_spmm._entry(), bitmap_spmm._entry(grouped=True),
+               flash_attention._entry(), block_sparse._entry(),
+               nm_spmm._entry()]
+    print(f"entry points: {', '.join(fn.__name__ for fn in entries)}")
     return smi
 
 
@@ -169,6 +212,39 @@ def _compare(name, out, ref, k, dt) -> float:
                           atol=ATOL[dt] * math.sqrt(k), rtol=1e-2):
         raise AssertionError(f"{name} {dt}: max |kernel - plain| {err}")
     return err
+
+
+def scaled_compare(name, out, ref, fixed, rms) -> tuple:
+    """Phase 5's check of one output against its plain version:
+    |kernel - plain| <= atol + ``RTOL``·|plain| at every element, atol
+    the smaller of ``fixed`` (the reference sweep's limit) and
+    ``SCALED_ATOL`` x ``rms`` (the plain output's rms, broadcast).  The
+    limit is itself checked: a zero output must fail it at most of the
+    elements where the plain output is not zero.  Raises on either
+    failure.  Returns (max |kernel - plain|, the largest share of the
+    limit used, the share of those elements at which a zero output
+    fails)."""
+    assert out.shape == ref.shape, (name, out.shape, ref.shape)
+    scaled = SCALED_ATOL[ref.dtype]
+    out, ref = out.float(), ref.float()
+    atol = torch.clamp(scaled * rms, max=fixed)
+    limit = atol + RTOL * ref.abs()
+    diff = (out - ref).abs()
+    # 0 / 0 (a zero limit met exactly) is within it
+    used = torch.nan_to_num(diff / limit, nan=0.0, posinf=math.inf
+                            ).max().item()
+    live = ref != 0      # where no limit can tell a zero output apart
+    zero_fails = ((ref.abs() > limit)[live].float().mean().item()
+                  if live.any() else math.nan)
+    err = diff.max().item()
+    if not used <= 1.0:
+        raise AssertionError(f"{name}: kernel differs from plain, {used} of "
+                             f"the limit, max |diff| {err}")
+    if live.any() and not zero_fails > 0.5:
+        raise AssertionError(f"{name}: the limit passes a zero output at "
+                             f"{100 * (1 - zero_fails):.1f}% of the non-zero "
+                             f"elements")
+    return err, used, zero_fails
 
 
 def kernel_against_plain(device, gen, shapes, rows, sparsities,
@@ -655,41 +731,295 @@ def granite_timing_phase(eng, device, gen, m: int = 4):
     return out, whole
 
 
-def yardsticks(device, copies: int = 8) -> dict:
-    """Phase 5: one library call at the shape each unported kernel would
-    take on olmo-1b, with its bound (bytes each input read once and the
-    output written once; bf16 operations), called nowhere in the port.
-    Each replay cycles through ``copies`` input sets (over 50 MB in all)
-    so that no call finds its inputs in the L2."""
-    f = torch.nn.functional
+def attention_cases(olmo_cfg, gemma_cfg, seq_olmo: int = 2048,
+                    seq_gemma: int = 4096):
+    """Phase 5's K2 shapes, from the two configs: (label, B, Hq, Hkv, S,
+    D, window, dtype)."""
+    window = next(b.window for b in gemma_cfg.pattern if b.window)
 
-    def bf16(*shape):
-        return torch.randn(*shape, device=device, dtype=torch.bfloat16)
+    def heads(cfg, s):
+        return cfg.num_heads, cfg.num_kv_heads, s, cfg.resolved_head_dim
 
-    qkv = [[bf16(1, 16, 2048, 128) for _ in range(3)] for _ in range(copies)]
-    t_att = graph_ms(lambda: [f.scaled_dot_product_attention(
-        q, k, v, is_causal=True) for q, k, v in qkv], 20) / copies
-    s = 2048
-    att_bytes = 4 * qkv[0][0].numel() * 2
-    att_ops = 4 * 16 * 128 * s * (s + 1) // 2      # QK^T and PV, causal
-    x = bf16(4, 2048)
-    ws = [bf16(2048, 8192) for _ in range(copies)]
-    t_mm = graph_ms(lambda: [torch.matmul(x, w) for w in ws], 20) / copies
-    mm_bytes = (x.numel() + ws[0].numel() + 4 * 8192) * 2
-    mm_ops = 2 * 4 * 2048 * 8192
-    out = {}
-    for name, t, moved, ops_, what in (
-            ("K2 flash_attention", t_att, att_bytes, att_ops,
-             "scaled_dot_product_attention B1 H16 S2048 D128 causal bf16"),
-            ("K3 block_sparse_matmul / K4 nm_spmm", t_mm, mm_bytes, mm_ops,
-             "torch.matmul M4 K2048 N8192 bf16 (dense weight)")):
-        b, by = bound_ms(moved, ops_)
-        out[name] = {"library": what, "library_ms": t, "bound_ms": b,
-                     "bound_by": by}
-        print(f"  {name}: {what}: {t:.4f} ms | dense bound {b:.4f} ms "
-              f"({by}) = {100 * b / t:.1f}%")
-    del qkv, ws
-    return out
+    bf16, f32 = torch.bfloat16, torch.float32
+    olmo, gemma = olmo_cfg.name, gemma_cfg.name
+    return [(f"{olmo} causal", 2, *heads(olmo_cfg, seq_olmo), None, bf16),
+            (f"{olmo} causal", 2, *heads(olmo_cfg, seq_olmo), None, f32),
+            (f"{olmo} causal, ragged", 2, *heads(olmo_cfg, seq_olmo - 1),
+             None, bf16),
+            (f"{gemma} local", 1, *heads(gemma_cfg, seq_gemma), window,
+             bf16),
+            (f"{gemma} global", 1, *heads(gemma_cfg, seq_gemma), None,
+             bf16),
+            (f"{gemma} local", 1, *heads(gemma_cfg, seq_gemma), window, f32),
+            (f"{gemma} global", 1, *heads(gemma_cfg, seq_gemma), None, f32)]
+
+
+def matmul_weights(olmo_cfg, device, gen):
+    """Phase 5's K3 and K4 weights, float32 (K, N), at olmo-1b's
+    full-width MLP shapes: seeded block masks (the construction of
+    ``benchmarks/kernel_bench.py``) for K3, layer 0's ``w_down`` after
+    ``global_l1_prune(0.5)`` of the whole model for K3, and layer 0's
+    ``w_gate``/``w_down`` pruned N:M for K4.  Returns (K3 list, K4 list)
+    of (label, weight, block, N:M or None, timed)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.sparse import global_l1_prune, prune_nm
+    d, f = olmo_cfg.d_model, olmo_cfg.d_ff
+    k3 = []
+    for name, k, n in (("gate_up", d, f), ("down", f, d)):
+        for block in BLOCKS:
+            kt, nt = k // block[0], n // block[1]
+            for p_zero in BLOCK_P_ZERO:
+                keep = torch.rand(kt, nt, generator=gen,
+                                  device=device) >= p_zero
+                w = torch.randn(k, n, generator=gen, device=device)
+                w = (w.view(kt, block[0], nt, block[1])
+                     * keep[:, None, :, None]).view(k, n)
+                timed = (name, block, p_zero) in (
+                    ("gate_up", (128, 128), 0.5), ("down", (64, 64), 0.75))
+                k3.append((f"{name} {k}x{n} block {block} p_zero {p_zero}",
+                           w, block, None, timed))
+    params = init_params(gen, olmo_cfg, device=device)
+    mlp = params["blocks"]["b0"]["mlp"]
+    w_gate, w_down = mlp["w_gate"][0].clone(), mlp["w_down"][0].clone()
+    pruned = global_l1_prune(params, 0.5)["blocks"]["b0"]["mlp"][
+        "w_down"][0].clone()
+    del params, mlp
+    torch.cuda.empty_cache()
+    k3.append((f"{olmo_cfg.name} w_down[0] {f}x{d} global_l1_prune(0.5) "
+               f"block (128, 128)", pruned, (128, 128), None, True))
+    k4 = [(f"{olmo_cfg.name} {name}[0] {tuple(w.shape)} {n}:{m} block "
+           f"{block}", prune_nm(w, n, m), block, (n, m),
+           (name, block) == ("w_gate", (128, 128))
+           or (name, block, n) == ("w_down", (64, 64), 2))
+          for name, w in (("w_gate", w_gate), ("w_down", w_down))
+          for n, m in NM_PATTERNS for block in BLOCKS]
+    return k3, k4
+
+
+def _pack(w, block, nm, dtype):
+    from repro_torch.sparse import pack_block_sparse, pack_nm
+    w = w.to(dtype)
+    return pack_nm(w, *nm, block=block) if nm else pack_block_sparse(
+        w, block=block)
+
+
+def _dense(bw):
+    from repro_torch.sparse import unpack_block_sparse, unpack_nm
+    return unpack_nm(bw) if hasattr(bw, "idx") else unpack_block_sparse(bw)
+
+
+def _sdpa_args(q, k, window) -> dict:
+    """Keyword arguments that make ``scaled_dot_product_attention`` (the
+    library call for K2, never called by the port) compute K2's mask:
+    causal, or with the window an explicit boolean mask; GQA when the
+    head counts differ."""
+    gqa = {"enable_gqa": True} if q.shape[1] != k.shape[1] else {}
+    if window is None:
+        return {"is_causal": True, **gqa}
+    pos_q = torch.arange(q.shape[2], device=q.device)[:, None]
+    pos_k = torch.arange(k.shape[2], device=q.device)[None, :]
+    return {"attn_mask": (pos_q >= pos_k) & (pos_q - pos_k < window), **gqa}
+
+
+def _sdpa_backend(q, k, v, args) -> str:
+    """Which SDPA backend PyTorch picks for these inputs."""
+    choice = torch._fused_sdp_choice(
+        q, k, v, args.get("attn_mask"), 0.0, args.get("is_causal", False),
+        **{key: args[key] for key in ("enable_gqa",) if key in args})
+    return torch.nn.attention.SDPBackend(choice).name
+
+
+def _copies(nbytes: int) -> int:
+    """Input sets a replay cycles through so that no call finds its
+    inputs in the 50 MB L2."""
+    return max(2, math.ceil(1.25 * L2_BYTES / nbytes))
+
+
+def time_attention(label, q, k, v, window):
+    """K2 at one shape: kernel and SDPA as CUDA-graph replays cycling
+    input sets past the L2, the plain version eagerly (once: it is
+    slow); bound from this call's live score pairs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import live_pairs
+    b, hq, sq, d = q.shape
+    moved = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    sets = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
+                          for _ in range(_copies(moved) - 1)]
+    t_k = graph_ms(lambda: [ops.flash_attention(*s, window=window)
+                            for s in sets], 10) / len(sets)
+    t_p = time_ms(lambda: ops.flash_attention(q, k, v, impl="torch",
+                                              window=window), 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    args = _sdpa_args(q, k, window)
+    t_l = graph_ms(lambda: [sdpa(*s, **args) for s in sets], 10) / len(sets)
+    pairs = b * hq * live_pairs(sq, k.shape[2], True, window)
+    b_ms, by = bound_ms(moved, 4 * d * pairs)
+    backend = _sdpa_backend(q, k, v, args)
+    lib_err = (sdpa(q, k, v, **args).float()
+               - ops.flash_attention(q, k, v, window=window).float()
+               ).abs().max().item()
+    print(f"  K2 {label} {tuple(q.shape)} kv {tuple(k.shape)} window "
+          f"{window}: kernel {t_k:.4f} ms | bound {b_ms:.4f} ms ({by}; "
+          f"{pairs} live pairs) = {100 * b_ms / t_k:.1f}% | "
+          f"{4 * d * pairs / t_k / 1e9:.1f} TFLOP/s | plain {t_p:.4f} ms | "
+          f"SDPA ({backend}) {t_l:.4f} ms, max |SDPA - kernel| "
+          f"{lib_err:.3g}")
+    del sets
+    return {"shape": label, "window": window, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": t_l,
+            "library": f"scaled_dot_product_attention ({backend})"}
+
+
+def time_matmul(name, label, x, bw, kernel):
+    """K3 or K4 on one weight at one M: kernel and ``torch.matmul`` on
+    the dense bf16 weight as CUDA-graph replays cycling input sets past
+    the L2, the plain version eagerly; bound from the weight's surviving
+    blocks (K3) or kept values (K4) in this run."""
+    m, k = x.shape
+    n = bw.shape[1]
+    if name == "nm_spmm":
+        kept = bw.values.numel()
+        w_bytes = bw.hbm_bytes
+    else:
+        kept = int(bw.nnzb.sum()) * bw.block[0] * bw.block[1]
+        w_bytes = (int(bw.nnzb.sum()) * bw.block[0] * bw.block[1]
+                   * bw.values.element_size() + 4 * (bw.kidx.numel()
+                                                     + bw.nnzb.numel()))
+    moved = (m * k + m * n) * x.element_size() + w_bytes
+    per_call = (m * k + m * n) * x.element_size() + bw.hbm_bytes
+    clone = dataclasses.replace
+    sets = [(x, bw)] + [
+        (x.clone(), clone(bw, values=bw.values.clone(),
+                          **({"idx": bw.idx.clone()} if name == "nm_spmm"
+                             else {"kidx": bw.kidx.clone(),
+                                   "nnzb": bw.nnzb.clone()})))
+        for _ in range(_copies(per_call) - 1)]
+    t_k = graph_ms(lambda: [kernel(a, w) for a, w in sets], 20) / len(sets)
+    t_p = time_ms(lambda: kernel(x, bw, impl="torch"), 2)
+    dense = [(a, _dense(w).to(torch.bfloat16)) for a, w in sets]
+    t_l = graph_ms(lambda: [torch.matmul(a, w) for a, w in dense],
+                   20) / len(sets)
+    b_ms, by = bound_ms(moved, 2 * m * kept)
+    print(f"  {name} {label} M={m}: kernel {t_k:.4f} ms | bound "
+          f"{b_ms:.4f} ms ({by}) = {100 * b_ms / t_k:.1f}% | plain "
+          f"{t_p:.4f} ms | torch.matmul dense bf16 {t_l:.4f} ms")
+    del sets, dense
+    return {"shape": f"{label}, M={m}", "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": t_l,
+            "library": "torch.matmul dense bf16"}
+
+
+def kernel_layer_phase(olmo_cfg, gemma_cfg, device, gen,
+                       attn=None, rows=MATMUL_ROWS, timed_rows=(4, 2048)):
+    """Phase 5: K2-K4 through the kernel layer's entry points at
+    full-width shapes.  The main path (every call through
+    ``ops.flash_attention``, ``ops.block_sparse_matmul`` and
+    ``nm_spmm``, counts set to 0 just before and read just after), then
+    each output against the plain version on the same inputs, then the
+    bf16 timings.  Returns {kernel: (path record, max |kernel - plain|,
+    timings)}."""
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels.nm_spmm import nm_spmm
+    attn = attn if attn is not None else attention_cases(olmo_cfg,
+                                                         gemma_cfg)
+    attn_in = []
+    for label, b, hq, hkv, s, d, window, dt in attn:
+        q = torch.randn(b, hq, s, d, generator=gen, device=device).to(dt)
+        k, v = (torch.randn(b, hkv, s, d, generator=gen,
+                            device=device).to(dt) for _ in range(2))
+        attn_in.append((label, q, k, v, window))
+    k3_w, k4_w = matmul_weights(olmo_cfg, device, gen)
+    dtypes = (torch.float32, torch.bfloat16)
+    packed = {dt: {name: [(label, _pack(w, block, nm, dt))
+                          for label, w, block, nm, _ in ws]
+                   for name, ws in (("block_sparse_matmul", k3_w),
+                                    ("nm_spmm", k4_w))} for dt in dtypes}
+    timed = {name: [label for label, *_, t in ws if t]
+             for name, ws in (("block_sparse_matmul", k3_w),
+                              ("nm_spmm", k4_w))}
+    xs = {(k, m, dt): torch.randn(m, k, generator=gen, device=device).to(dt)
+          for k in {olmo_cfg.d_model, olmo_cfg.d_ff} for m in rows
+          for dt in dtypes}
+    kernels = {"block_sparse_matmul": ops.block_sparse_matmul,
+               "nm_spmm": nm_spmm}
+    del k3_w, k4_w
+    sync()
+
+    reset_launches()
+    a_out = [ops.flash_attention(q, k, v, window=window)
+             for _, q, k, v, window in attn_in]
+    m_out = {name: [(label, m, dt, kernels[name](xs[bw.shape[0], m, dt], bw))
+                    for dt in dtypes for label, bw in packed[dt][name]
+                    for m in rows] for name in kernels}
+    sync()
+    launches = dict(LAUNCHES)
+    calls = {"flash_attention": len(a_out),
+             **{name: len(out) for name, out in m_out.items()}}
+    assert launches == {"bitmap_spmm": 0, "bitmap_spmm_grouped": 0,
+                        **calls}, (launches, calls)
+    print(f"main path, kernel layer entry points at full width: launches "
+          f"{launches}")
+
+    worst = {name: 0.0 for name in calls}
+    for (label, q, k, v, window), out in zip(attn_in, a_out):
+        ref = ops.flash_attention(q, k, v, impl="torch", window=window)
+        sync()
+        assert out.shape == q.shape and bool(torch.isfinite(out).all())
+        rms = ref.float().square().mean(-1, keepdim=True).sqrt()
+        name = (f"K2 {label} {tuple(q.shape)} kv {tuple(k.shape)} window "
+                f"{window} {q.dtype}")
+        err, used, zero = scaled_compare(name, out, ref, ATTN_ATOL[q.dtype],
+                                         rms)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        print(f"  {name}: max |kernel - plain| {err:.3g}, {used:.3g} of the "
+              f"limit (atol min({ATTN_ATOL[q.dtype]}, "
+              f"{SCALED_ATOL[q.dtype]} x row rms {rms.min().item():.3g}.."
+              f"{rms.max().item():.3g}), rtol {RTOL}); a zero output fails "
+              f"at {100 * zero:.1f}% of the non-zero elements")
+        del ref, rms
+    del a_out
+    for name, outs in m_out.items():
+        by_weight = {}
+        for label, m, dt, out in outs:
+            bw = dict(packed[dt][name])[label]
+            x = xs[bw.shape[0], m, dt]
+            ref = kernels[name](x, bw, impl="torch")
+            rms = ref.float().square().mean().sqrt()
+            res = scaled_compare(f"{name} {label} M={m} {dt}", out, ref,
+                                 ATOL[dt] * math.sqrt(bw.shape[0]), rms)
+            worst[name] = max(worst[name], res[0])
+            by_weight.setdefault(label, []).append((*res, rms.item()))
+        for label, res in by_weight.items():
+            err, used, zero, rms = zip(*res)
+            print(f"  {name} {label}: max |kernel - plain| {max(err):.3g}, "
+                  f"{max(used):.3g} of the limit (atol min(phase 2's, "
+                  f"{SCALED_ATOL[torch.float32]} / "
+                  f"{SCALED_ATOL[torch.bfloat16]} x rms {min(rms):.3g}.."
+                  f"{max(rms):.3g}) for float32 / bf16, rtol {RTOL}); a zero "
+                  f"output fails at >= {100 * min(zero):.1f}% of the non-zero "
+                  f"elements; "
+                  f"M={list(rows)}")
+    del m_out
+    torch.cuda.empty_cache()
+
+    timings = {name: [] for name in calls}
+    for label, q, k, v, window in attn_in:
+        if q.dtype == torch.bfloat16:
+            timings["flash_attention"].append(
+                time_attention(label, q, k, v, window))
+    del attn_in
+    for name, labels in timed.items():
+        bf = dict(packed[torch.bfloat16][name])
+        for label in labels:
+            bw = bf[label]
+            for m in timed_rows:
+                timings[name].append(time_matmul(
+                    name, label, xs[bw.shape[0], m, torch.bfloat16], bw,
+                    kernels[name]))
+    path = "kernel layer entry points at full width (phase 5)"
+    return {name: ({"path": path, "launches": launches[name],
+                    "calls": calls[name]}, worst[name], timings[name])
+            for name in calls}
 
 
 def phase(label: str, t0: float) -> float:
@@ -698,13 +1028,16 @@ def phase(label: str, t0: float) -> float:
     return now
 
 
-def run(olmo_cfg, granite_cfg, device, gen, olmo_shapes=OLMO_SHAPES,
-        granite_shapes=GRANITE_SHAPES,
-        expert_shapes=GRANITE_EXPERT_SHAPES) -> dict:
+def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
+        olmo_shapes=OLMO_SHAPES, granite_shapes=GRANITE_SHAPES,
+        expert_shapes=GRANITE_EXPERT_SHAPES, attn=None,
+        rows=MATMUL_ROWS, timed_rows=(4, 2048)) -> dict:
     """Phases 2-5; returns the kernels record.  A kernel's ``launches``
     sums its ``paths`` (each path's run with the counts set to 0 just
-    before it); ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
-    one decode step's calls at M = 4 (``ms_scope``)."""
+    before it).  K1's and K1g's ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` are one decode step's calls at M = 4; K2's are
+    olmo-1b's bf16 causal shape and K3's / K4's the gate/up weight at
+    M = 4, with every timed shape under ``timings`` (``ms_scope``)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     t = time.perf_counter()
     worst = {"bitmap_spmm": max(
@@ -731,13 +1064,16 @@ def run(olmo_cfg, granite_cfg, device, gen, olmo_shapes=OLMO_SHAPES,
     torch.cuda.empty_cache()
     t = phase(f"phase 4, {granite_cfg.name}", t)
 
-    yard = yardsticks(device)
-    print(json.dumps({"library_yardsticks": yard}))
-    phase("phase 5, library yardsticks", t)
+    layer = kernel_layer_phase(olmo_cfg, gemma_cfg, device, gen, attn=attn,
+                               rows=rows, timed_rows=timed_rows)
+    for name, (_, err, _) in layer.items():
+        worst[name] = err
+    phase("phase 5, kernels K2-K4 against their plain versions and timed",
+          t)
 
     def record(name, paths, times, scope, **extra):
         ms, plain_ms, b_ms, by, lib_ms = times
-        return {"name": name, "route": "cuda", "source": SOURCE,
+        return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": sum(p["launches"] for p in paths),
                 "paths": paths, "max_abs_err": worst[name], "ms": ms,
@@ -766,7 +1102,12 @@ def run(olmo_cfg, granite_cfg, device, gen, olmo_shapes=OLMO_SHAPES,
                            "bound_ms": whole[2], "bound_by": whole[3],
                            "library_ms": whole[4],
                            "ms_scope": "both kernels' launches of one "
-                                       "decode step"})]}
+                                       "decode step"})] + [
+        record(name, [path], tuple(timings[0][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")),
+            f"{timings[0]['shape']}, bf16; library "
+            f"{timings[0]['library']}", timings=timings)
+        for name, (path, _, timings) in layer.items()]}
 
 
 def main() -> int:
@@ -781,10 +1122,10 @@ def main() -> int:
     smi = card_and_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     record = run(get_config("olmo-1b"), get_config("granite-moe-3b-a800m"),
-                 torch.device("cuda"), gen)
+                 get_config("gemma3-4b"), torch.device("cuda"), gen)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s"
           f" on {smi} (the kernels line: launches over the main-path runs; "
-          f"times per decode step)")
+          f"times per decode step for K1 and K1g, per call for K2-K4)")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 
-def params_from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
+
+def params_from_numpy(tree: Any,
+                      device: torch.device | str | None = None) -> Any:
     """Nested dict of numpy arrays -> the same nested dict of tensors
-    (copies; the arrays are left as they were)."""
+    (copies; the arrays are left as they were) on ``device``, ``cuda``
+    unless named (``NoCudaDevice`` without a card)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree)).to(device)

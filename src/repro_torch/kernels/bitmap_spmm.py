@@ -5,10 +5,9 @@ Pallas TPU kernel that carries every packed projection and the LM head of
 the serving decode step.  ``bitmap_spmm_grouped`` replaces
 ``repro/kernels/bitmap_spmm.py:bitmap_spmm_grouped`` (MoE expert stacks),
 which unrolls one TPU kernel call per group: here one launch covers every
-group, the group folded into the grid.  The source is ``csrc/bitmap_spmm.cu`` (a plain C
-entry point): it is compiled with ``nvcc`` for ``sm_90a`` at first use
-into ``_build/`` (named by a hash of the source and flags) and loaded
-with ``ctypes``.
+group, the group folded into the grid.  The source is
+``csrc/bitmap_spmm.cu`` (plain C entry points), built with the port's
+other kernels into one library at first use (``_build``).
 
 Bound: at decode M (1..8 rows) each weight byte feeds at most eight
 multiply-adds, so the kernel is bound by the compressed weight bytes
@@ -22,92 +21,29 @@ from the card's SM count (see the source's header for the rest).
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import time
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.sparse.format import BitmapWeight
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "bitmap_spmm.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_TYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
+
+def _entry(grouped: bool = False):
+    """K1's entry point, or with ``grouped`` K1g's."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if grouped:
+        return _build.entry("bitmap_spmm_grouped_launch", *[p] * 6, *[i] * 11)
+    return _build.entry("bitmap_spmm_launch", *[p] * 6, *[i] * 10)
 
 
-@dataclasses.dataclass
-class Build:
-    path: pathlib.Path
-    log: str          # nvcc / ptxas output (registers, shared memory, spills)
-    seconds: float    # 0.0 when the library was already built
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the bitmap_spmm kernel")
-    return found
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> Build:
-    """Compile ``csrc/bitmap_spmm.cu`` once per source hash."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"bitmap_spmm-{digest}.so"
-    if out.exists():
-        return Build(out, "", 0.0)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
-    os.replace(tmp, out)   # atomic: a concurrent build never sees a partial
-    return Build(out, log, seconds)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
-    fn = lib.bitmap_spmm_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.bitmap_spmm_grouped_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def k_splits(kt: int, nt: int, m: int, sms: int, groups: int = 1) -> int:
+def k_splits(kt: int, nt: int, m: int, sms: int, groups: int = 1,
+             rows: int = 8) -> int:
     """How many blocks share the K tiles of one (group, column tile,
-    8-row block): enough for about four blocks per SM (two run at once,
-    the rest queue behind them), at most one per K tile.  More splits
-    mean more float32 partial sums to add."""
-    blocks = groups * nt * -(-m // 8)
+    block of ``rows`` rows): enough for about four blocks per SM (two run
+    at once, the rest queue behind them), at most one per K tile.  More
+    splits mean more float32 partial sums to add."""
+    blocks = groups * nt * -(-m // rows)
     return max(1, min(kt, -(-4 * sms // blocks)))
 
 
@@ -138,7 +74,7 @@ def _check(x: torch.Tensor, w: BitmapWeight,
             raise ValueError(f"one (K, N) matrix expected, got values of "
                              f"shape {tuple(w.values.shape)} (slice a "
                              f"stacked weight)")
-    if x.dtype not in _TYPE_FLAG or w.values.dtype not in _TYPE_FLAG:
+    if not {x.dtype, w.values.dtype} <= _build.TYPE_FLAG.keys():
         raise TypeError(f"x and values must be float32 or bfloat16, got "
                         f"{x.dtype} and {w.values.dtype}")
     if w.packed_bits.dtype != torch.uint8 or w.row_start.dtype != torch.int32:
@@ -175,25 +111,24 @@ def bitmap_spmm(x: torch.Tensor, w: BitmapWeight,
     current stream (no synchronisation) or raises."""
     kt, nt, bk, bn = _check(x, w)
     out_dtype = out_dtype or x.dtype
-    if out_dtype not in _TYPE_FLAG:
+    if out_dtype not in _build.TYPE_FLAG:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
     m = x.shape[0]
     out = torch.empty((m, nt * bn), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    splits = k_splits(kt, nt, m, _sm_count(x.device))
+    splits = k_splits(kt, nt, m, _build.sm_count(x.device))
     partial = (torch.empty((splits, m, nt * bn), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    fn = _library().bitmap_spmm_launch
+    fn = _entry()
     rc = fn(x.data_ptr(), w.packed_bits.data_ptr(), w.values.data_ptr(),
             w.row_start.data_ptr(), out.data_ptr(),
             partial.data_ptr() if partial is not None else None, m, kt, nt,
-            bk, bn, w.budget, splits, _TYPE_FLAG[x.dtype],
-            _TYPE_FLAG[w.values.dtype], _TYPE_FLAG[out_dtype],
+            bk, bn, w.budget, splits, _build.TYPE_FLAG[x.dtype],
+            _build.TYPE_FLAG[w.values.dtype], _build.TYPE_FLAG[out_dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bitmap_spmm launch failed: CUDA error {rc}")
+    _build.check_launch("bitmap_spmm", rc)
     LAUNCHES["bitmap_spmm"] += 1
     return out
 
@@ -207,26 +142,24 @@ def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
     ``x.dtype``).  Launches on the current stream or raises."""
     kt, nt, bk, bn = _check(x, w, grouped=True)
     out_dtype = out_dtype or x.dtype
-    if out_dtype not in _TYPE_FLAG:
+    if out_dtype not in _build.TYPE_FLAG:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
     g, m, _ = x.shape
     out = torch.empty((g, m, nt * bn), dtype=out_dtype, device=x.device)
     if m == 0 or g == 0:
         return out
-    splits = k_splits(kt, nt, m, _sm_count(x.device), groups=g)
+    splits = k_splits(kt, nt, m, _build.sm_count(x.device), groups=g)
     partial = (torch.empty((splits, g, m, nt * bn), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    fn = _library().bitmap_spmm_grouped_launch
+    fn = _entry(grouped=True)
     rc = fn(x.data_ptr(), w.packed_bits.data_ptr(), w.values.data_ptr(),
             w.row_start.data_ptr(), out.data_ptr(),
             partial.data_ptr() if partial is not None else None, g, m, kt,
-            nt, bk, bn, w.budget, splits, _TYPE_FLAG[x.dtype],
-            _TYPE_FLAG[w.values.dtype], _TYPE_FLAG[out_dtype],
+            nt, bk, bn, w.budget, splits, _build.TYPE_FLAG[x.dtype],
+            _build.TYPE_FLAG[w.values.dtype], _build.TYPE_FLAG[out_dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bitmap_spmm_grouped launch failed: CUDA error "
-                           f"{rc}")
+    _build.check_launch("bitmap_spmm_grouped", rc)
     LAUNCHES["bitmap_spmm_grouped"] += 1
     return out
 

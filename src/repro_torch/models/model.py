@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import BlockCfg, ModelConfig
 from repro_torch.sparse.format import BitmapWeight
@@ -107,9 +108,11 @@ def _set(tree: Dict, path: Tuple[str, ...], leaf) -> None:
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: torch.device | str = "cpu") -> Dict:
+                device: torch.device | str | None = None) -> Dict:
     """Random parameters with the reference's per-name rules and scales,
-    drawn from ``generator`` (which must live on ``device``)."""
+    drawn from ``generator`` (which must live on ``device``: ``cuda``
+    unless named, ``NoCudaDevice`` without a card)."""
+    device = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
     depth_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
     leaves = [(p, s) for p, s in tree_items(param_shapes(cfg))]
@@ -192,9 +195,11 @@ def _cache_shapes(cfg: ModelConfig, blk: BlockCfg, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: torch.device | str = "cpu") -> Dict:
+               device: torch.device | str | None = None) -> Dict:
     """Contiguous decode cache: ``{bname: {"k", "v"}}`` of shape
-    (P, batch, capacity, Hkv, hd) in the compute type, zeroed."""
+    (P, batch, capacity, Hkv, hd) in the compute type, zeroed, on
+    ``device`` (``cuda`` unless named)."""
+    device = resolve_device(device)
     dt = DTYPES[cfg.compute_dtype]
     return {f"b{i}": {k: torch.zeros(s, dtype=dt, device=device)
                       for k, s in _cache_shapes(cfg, blk, batch,

@@ -15,8 +15,11 @@ from repro_torch.models.model import init_cache
 
 
 class SlotKVCache:
+    """The engine's decode cache on ``device`` (``cuda`` unless named,
+    ``NoCudaDevice`` without a card)."""
+
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.num_slots = num_slots
         self.max_len = max_len
         self.cache = init_cache(cfg, num_slots, max_len, device=device)

@@ -238,3 +238,76 @@ def pack_bitmap_experts(w: torch.Tensor, block: Tuple[int, int],
 def unpack_bitmap_experts(bw: BitmapWeight) -> torch.Tensor:
     """Dense (P, E, K, N) rendering of an expert-stacked BitmapWeight."""
     return unpack_bitmap_stacked(bw)
+
+
+@dataclasses.dataclass
+class BlockSparseWeight:
+    """Block-sparse (K, N) weight: all-zero (BK, BN) blocks dropped.
+
+    Per column block j, the surviving blocks in K order: ``values[j, s]``
+    is K block ``kidx[j, s]`` for s < ``nnzb[j]``; the remaining slots up
+    to ``smax`` are padding (zeros, K block 0)."""
+
+    values: torch.Tensor     # (NT, SMAX, BK, BN)
+    kidx: torch.Tensor       # (NT, SMAX) int32
+    nnzb: torch.Tensor       # (NT,) int32
+    shape: Tuple[int, int]
+    block: Tuple[int, int]
+
+    @property
+    def smax(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def hbm_bytes(self) -> int:
+        return (self.values.numel() * self.values.element_size()
+                + self.kidx.numel() * 4 + self.nnzb.numel() * 4)
+
+    @property
+    def density(self) -> float:
+        """Surviving blocks over all blocks (reads ``nnzb``: a host
+        synchronisation on the card)."""
+        kt = self.shape[0] // self.block[0]
+        return int(self.nnzb.sum()) / (kt * self.kidx.shape[0])
+
+
+def pack_block_sparse(w: torch.Tensor, block: Tuple[int, int] = (128, 128)
+                      ) -> BlockSparseWeight:
+    """Pack a dense (K, N) tensor, dropping its all-zero (BK, BN) blocks;
+    byte-equal to the reference's numpy pack, run on ``w``'s device."""
+    k, n = w.shape
+    bk, bn = block
+    assert k % bk == 0 and n % bn == 0, (tuple(w.shape), block)
+    kt, nt = k // bk, n // bn
+    tiles = w.reshape(kt, bk, nt, bn).permute(2, 0, 1, 3)   # (NT, KT, BK, BN)
+    alive = (tiles != 0).flatten(2).any(-1)                  # (NT, KT)
+    nnzb = alive.sum(-1).to(torch.int32)
+    smax = max(int(nnzb.max()), 1)
+    values = torch.zeros((nt, smax, bk, bn), dtype=w.dtype, device=w.device)
+    kidx = torch.zeros((nt, smax), dtype=torch.int32, device=w.device)
+    # surviving (j, K block) pairs in row-major order; the slot of each is
+    # its rank among its column block's survivors
+    j, kb = alive.nonzero(as_tuple=True)
+    slot = (torch.cumsum(alive, -1) - 1)[j, kb]
+    values[j, slot] = tiles[j, kb]
+    kidx[j, slot] = kb.to(torch.int32)
+    return BlockSparseWeight(values=values, kidx=kidx, nnzb=nnzb,
+                             shape=(k, n), block=(bk, bn))
+
+
+def unpack_block_sparse(bw: BlockSparseWeight) -> torch.Tensor:
+    """Dense (K, N) rendering: each valid slot added at its K block, as
+    the reference's scatter-add."""
+    nt, smax, bk, bn = bw.values.shape
+    kt = bw.shape[0] // bk
+    valid = (torch.arange(smax, device=bw.values.device)[None, :]
+             < bw.nnzb[:, None])
+    vals = torch.where(valid[..., None, None], bw.values,
+                       torch.zeros((), dtype=bw.values.dtype,
+                                   device=bw.values.device))
+    dense = torch.zeros((nt, kt, bk, bn), dtype=bw.values.dtype,
+                        device=bw.values.device)
+    j = torch.arange(nt, device=bw.values.device).repeat_interleave(smax)
+    dense.index_put_((j, bw.kidx.reshape(-1).long()),
+                     vals.reshape(nt * smax, bk, bn), accumulate=True)
+    return dense.permute(1, 2, 0, 3).reshape(bw.shape)

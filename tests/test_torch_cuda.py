@@ -20,6 +20,7 @@ from repro_torch.serve import ServeEngine, poisson_trace
 from repro_torch.sparse import pack_bitmap, pack_bitmap_experts
 
 TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+NONE = dict.fromkeys(LAUNCHES, 0)   # every kernel's count, none launched
 
 
 @pytest.fixture
@@ -92,7 +93,7 @@ def test_engine_on_card_goes_through_kernel(cuda):
     weights."""
     cfg = dataclasses.replace(get_smoke_config("olmo-1b"),
                               compute_dtype="float32")
-    params = init_params(torch.Generator().manual_seed(0), cfg)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     cpu = ServeEngine(cfg, num_slots=2, max_len=32, sparsity=0.5,
                       params=params, device="cpu")
     gpu = ServeEngine(cfg, num_slots=2, max_len=32, sparsity=0.5,
@@ -130,7 +131,7 @@ def test_grouped_kernel_matches_plain(cuda, k, n, m, dname, sparsity):
     reset_launches()
     out = ops.bitmap_spmm_grouped(xt, bw)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"bitmap_spmm": 0, "bitmap_spmm_grouped": 1}
+    assert LAUNCHES == {**NONE, "bitmap_spmm_grouped": 1}
     assert out.dtype == xt.dtype and out.shape == (g, m, n)
     expect = ops.bitmap_spmm_grouped(xt, bw, impl="torch")
     tol = 2e-2 if dname == "bfloat16" else 2e-3
@@ -177,7 +178,7 @@ def test_moe_engine_on_card_goes_through_kernels(cuda, chunk):
     in float32 the tokens equal the CPU engine's on the same weights."""
     cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
                               compute_dtype="float32")
-    params = init_params(torch.Generator().manual_seed(0), cfg)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     kw = dict(num_slots=4, max_len=48, sparsity=0.5, params=params,
               prefill_chunk=chunk)
     cpu = ServeEngine(cfg, device="cpu", **kw)
@@ -193,6 +194,171 @@ def test_moe_engine_on_card_goes_through_kernels(cuda, chunk):
     rep = gpu.run()
     calls = gpu.decode_steps + rep["prefill"]["calls"]
     assert (chunk == 0) == (rep["prefill"]["calls"] == 0)
-    assert LAUNCHES == {"bitmap_spmm": 4 * cfg.num_layers * calls,
+    assert LAUNCHES == {**NONE, "bitmap_spmm": 4 * cfg.num_layers * calls,
                         "bitmap_spmm_grouped": 3 * cfg.num_layers * calls}
     assert [r.tokens for r in a] == [r.tokens for r in b]
+
+
+# K2-K4: the kernel layer's remaining entry points against their plain
+# versions, at the CPU sweeps' shapes and one full-width shape each.
+# Attention tolerances are the reference sweep's (atol 2e-3 float32,
+# 5e-2 bfloat16: the kernel rounds p to bfloat16 before the PV product,
+# the plain version does not).
+
+def _attn_case(cuda, b, hq, hkv, sq, skv, d, dname, seed):
+    r = np.random.default_rng(seed)
+    return [torch.from_numpy(r.standard_normal(s).astype(np.float32)).to(
+        cuda, TYPES[dname]) for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                                      (b, hkv, skv, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
+    (2, 4, 4, 128, 128, 64, True, None),
+    (2, 4, 2, 256, 256, 64, True, None),
+    (2, 8, 1, 128, 128, 128, True, None),
+    (2, 4, 2, 256, 256, 64, True, 64),
+    (2, 2, 2, 128, 128, 32, True, 16),
+    (1, 8, 4, 300, 300, 256, True, 100),      # gemma3's head dim, ragged
+    (1, 4, 2, 200, 130, 64, False, None),     # Sq != Skv, no mask
+    (1, 2, 1, 70, 50, 32, True, 8),           # rows with no live key
+    (1, 16, 16, 2048, 2048, 128, True, None),  # olmo-1b, full width
+])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d,
+                                              causal, window, dname):
+    q, k, v = _attn_case(cuda, b, hq, hkv, sq, skv, d, dname, seed=sq + d)
+    reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "flash_attention": 1}
+    assert out.dtype == q.dtype and out.shape == q.shape
+    expect = ops.flash_attention(q, k, v, impl="torch", causal=causal,
+                                 window=window)
+    atol = 5e-2 if dname == "bfloat16" else 2e-3
+    torch.testing.assert_close(out.float(), expect.float(), atol=atol,
+                               rtol=0)
+
+
+def _block_case(k, n, block, p_zero, seed):
+    r = np.random.default_rng(seed)
+    kt, nt = k // block[0], n // block[1]
+    w = r.standard_normal((k, n)).astype(np.float32)
+    mask = r.random((kt, nt)) >= p_zero
+    return (w.reshape(kt, block[0], nt, block[1])
+            * mask[:, None, :, None]).reshape(k, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,block,p_zero", [
+    (256, 256, (128, 128), 0.5),
+    (512, 128, (128, 128), 0.75),
+    (256, 256, (64, 64), 0.3),
+    (256, 256, (64, 64), 1.0),                # every block dropped
+    (2048, 8192, (128, 128), 0.5),            # olmo-1b gate/up
+])
+@pytest.mark.parametrize("m", [1, 4, 130, 256])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("oname", [None, "float32", "bfloat16"])
+def test_block_sparse_kernel_matches_plain(cuda, k, n, block, p_zero, m,
+                                           dname, vname, oname):
+    """Every type combination the wrapper takes: x, the packed values and
+    the output each float32 or bfloat16 (``oname`` None: x's type)."""
+    from repro_torch.sparse import pack_block_sparse
+    w = _block_case(k, n, block, p_zero, seed=k + n + m)
+    bw = pack_block_sparse(torch.from_numpy(w).to(cuda, TYPES[vname]),
+                           block=block)
+    x = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (m, k)).astype(np.float32)).to(cuda, TYPES[dname])
+    out_dtype = TYPES[oname] if oname else None
+    reset_launches()
+    out = ops.block_sparse_matmul(x, bw, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "block_sparse_matmul": 1}
+    assert out.dtype == (out_dtype or x.dtype) and out.shape == (m, n)
+    expect = ops.block_sparse_matmul(x, bw, impl="torch",
+                                     out_dtype=out_dtype)
+    assert expect.dtype == out.dtype
+    tol = 2e-2 if dname == "bfloat16" else 2e-3
+    torch.testing.assert_close(out.float(), expect.float(),
+                               atol=tol * np.sqrt(k), rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,nm,block", [
+    (256, 128, (1, 4), (128, 128)),
+    (256, 256, (2, 4), (128, 128)),
+    (128, 128, (1, 4), (64, 64)),
+    (256, 128, (2, 8), (64, 64)),
+    (2048, 8192, (2, 4), (128, 128)),         # olmo-1b gate/up
+])
+@pytest.mark.parametrize("m", [1, 4, 130, 256])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("oname", [None, "float32", "bfloat16"])
+def test_nm_kernel_matches_plain(cuda, k, n, nm, block, m, dname, vname,
+                                 oname):
+    """Every type combination the wrapper takes, as for block-sparse."""
+    from repro_torch.kernels.nm_spmm import nm_spmm
+    from repro_torch.sparse import pack_nm, prune_nm
+    r = np.random.default_rng(k + n + m)
+    w = prune_nm(torch.from_numpy(r.standard_normal((k, n)).astype(
+        np.float32)).to(cuda, TYPES[vname]), *nm)
+    nw = pack_nm(w, *nm, block=block)
+    x = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)).to(
+        cuda, TYPES[dname])
+    out_dtype = TYPES[oname] if oname else None
+    reset_launches()
+    out = nm_spmm(x, nw, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "nm_spmm": 1}
+    assert out.dtype == (out_dtype or x.dtype) and out.shape == (m, n)
+    expect = nm_spmm(x, nw, impl="torch", out_dtype=out_dtype)
+    assert expect.dtype == out.dtype
+    tol = 2e-2 if dname == "bfloat16" else 2e-3
+    torch.testing.assert_close(out.float(), expect.float(),
+                               atol=tol * np.sqrt(k), rtol=1e-2)
+    torch.testing.assert_close(expect.float(), (x.float() @ w.to(
+        x.dtype).float()).to(expect.dtype).float(), atol=tol * np.sqrt(k),
+        rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_bad_inputs(cuda):
+    """A CPU tensor, a wrong type or a mismatched shape raises; nothing
+    falls back to the plain version, and nothing is counted."""
+    from repro_torch.kernels import block_sparse, flash_attention, nm_spmm
+    from repro_torch.sparse import pack_block_sparse, pack_nm, prune_nm
+    q = torch.randn(1, 4, 64, 64, device=cuda)
+    kv = torch.randn(1, 2, 64, 64, device=cuda)
+    reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q.cpu(), kv.cpu(), kv.cpu())
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q[..., :48].contiguous(),
+                                        kv[..., :48].contiguous(),
+                                        kv[..., :48].contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention.flash_attention(torch.randn(1, 3, 64, 64,
+                                                    device=cuda), kv, kv)
+    bw = pack_block_sparse(torch.randn(256, 128, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        block_sparse.block_sparse_matmul(torch.zeros(4, 256), bw)
+    with pytest.raises(TypeError):
+        block_sparse.block_sparse_matmul(
+            torch.zeros(4, 256, device=cuda, dtype=torch.float16), bw)
+    with pytest.raises(ValueError, match="K="):
+        block_sparse.block_sparse_matmul(torch.zeros(4, 128, device=cuda),
+                                         bw)
+    nw = pack_nm(prune_nm(torch.randn(256, 128, device=cuda)))
+    with pytest.raises(ValueError, match="CUDA"):
+        nm_spmm.nm_spmm_cuda(torch.zeros(4, 256), nw)
+    with pytest.raises(TypeError):
+        nm_spmm.nm_spmm(torch.zeros(4, 256, device=cuda,
+                                    dtype=torch.float16), nw)
+    with pytest.raises(ValueError, match="K="):
+        nm_spmm.nm_spmm(torch.zeros(4, 128, device=cuda), nw)
+    assert LAUNCHES == NONE

@@ -66,7 +66,8 @@ def _pair(slots, sparsity, dname, seed=0, max_len=32):
     params = jax.tree.map(np.asarray,
                           ref_init_params(jax.random.PRNGKey(seed), cfg))
     pt = PtEngine(pcfg, num_slots=slots, max_len=max_len, sparsity=sparsity,
-                  seed=seed, params=params_from_numpy(params), device="cpu")
+                  seed=seed, params=params_from_numpy(params, device="cpu"),
+                  device="cpu")
     trace = poisson_trace(6, rate=0.8, seed=7, vocab_size=cfg.vocab_size,
                           max_new=(6, 12))
     return ref, pt, trace
@@ -175,7 +176,7 @@ def test_bridge_carries_moe_leaves_unchanged(arch):
     cfg = ref_smoke(arch)
     params = jax.tree.map(np.asarray,
                           ref_init_params(jax.random.PRNGKey(0), cfg))
-    pt = params_from_numpy(params)
+    pt = params_from_numpy(params, device="cpu")
     moe, pt_moe = params["blocks"]["b0"]["moe"], pt["blocks"]["b0"]["moe"]
     p, d, e, f = cfg.num_periods, cfg.d_model, cfg.num_experts, cfg.d_ff
     assert moe["router"].shape == (p, d, e)
@@ -195,6 +196,29 @@ def test_no_device_given_raises_without_cuda(monkeypatch):
     from repro_torch.launch.serve import main
     with pytest.raises(NoCudaDevice):
         main(["--arch", "olmo-1b", "--smoke"])
+
+
+@pytest.mark.parametrize("entry", ["params_from_numpy", "init_params",
+                                   "init_cache", "SlotKVCache"])
+def test_tensor_makers_default_to_card_and_raise_without_it(monkeypatch,
+                                                           entry):
+    """The functions that build the port's tensors run on ``cuda``
+    unless given a device: without a card they raise, never drop to the
+    CPU."""
+    from repro_torch.models import model as pt_M
+    from repro_torch.serve.cache import SlotKVCache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = pt_smoke("olmo-1b")
+    calls = {
+        "params_from_numpy": lambda: params_from_numpy(
+            {"w": np.zeros((2, 3), np.float32)}),
+        "init_params": lambda: pt_M.init_params(
+            torch.Generator().manual_seed(0), cfg),
+        "init_cache": lambda: pt_M.init_cache(cfg, 2, 8),
+        "SlotKVCache": lambda: SlotKVCache(cfg, 2, 8),
+    }
+    with pytest.raises(NoCudaDevice):
+        calls[entry]()
 
 
 def test_port_imports_without_jax_or_reference():

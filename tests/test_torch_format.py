@@ -91,8 +91,8 @@ def test_global_l1_prune_identical_mask(arch, sparsity):
     np_params = jax.tree.map(np.asarray, ref_params)
     ref_pruned = jax.tree.map(np.asarray, ref_pruning.global_l1_prune(
         ref_params, sparsity))
-    pt_pruned = pt_pruning.global_l1_prune(params_from_numpy(np_params),
-                                           sparsity)
+    pt_pruned = pt_pruning.global_l1_prune(
+        params_from_numpy(np_params, device="cpu"), sparsity)
     ref_items = jax.tree_util.tree_leaves_with_path(ref_pruned)
     pt_items = pt_pruning.tree_items(pt_pruned)
     assert [jax.tree_util.keystr(p) for p, _ in ref_items] == [
@@ -182,7 +182,8 @@ def test_global_prune_over_expert_stacks_in_pieces(monkeypatch):
     ref = jax.tree.map(np.asarray, ref_pruning.global_l1_prune(
         jax.tree.map(jax.numpy.asarray, np_params), 0.5))
     monkeypatch.setattr(pt_pruning, "_PIECE", 1000)
-    pt = pt_pruning.global_l1_prune(params_from_numpy(np_params), 0.5)
+    pt = pt_pruning.global_l1_prune(
+        params_from_numpy(np_params, device="cpu"), 0.5)
     ref_items = jax.tree_util.tree_leaves_with_path(ref)
     for (path, a), (_, b) in zip(ref_items, pt_pruning.tree_items(pt)):
         np.testing.assert_array_equal(a, b.numpy(),

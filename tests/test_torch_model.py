@@ -136,7 +136,7 @@ def _bridged(arch, dname, sparsity=0.5, seed=0):
     params = ref_prune(ref_M.init_params(jax.random.PRNGKey(seed), cfg),
                        sparsity)
     return cfg, pcfg, params, params_from_numpy(
-        jax.tree.map(np.asarray, params))
+        jax.tree.map(np.asarray, params), device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-4b",
@@ -148,7 +148,7 @@ def test_param_shapes_and_init_rules(arch):
                               is_leaf=lambda x: isinstance(x, tuple))
     assert pt_M.param_shapes(pcfg) == ref_shapes
     gen = torch.Generator().manual_seed(0)
-    pt = pt_M.init_params(gen, pcfg)
+    pt = pt_M.init_params(gen, pcfg, device="cpu")
     ref = ref_M.init_params(jax.random.PRNGKey(0), cfg)
     flat_ref = {jax.tree_util.keystr(p): np.asarray(l)
                 for p, l in jax.tree_util.tree_leaves_with_path(ref)}
@@ -179,7 +179,7 @@ def test_decode_step_logits_match(arch, packed, dname):
         pt_lm = pt_pack_lm_head(pt_params, pcfg, 0.5)
     b, max_len, steps = 3, 24, 12
     ref_cache = ref_M.init_cache(cfg, b, max_len)
-    pt_cache = pt_M.init_cache(pcfg, b, max_len)
+    pt_cache = pt_M.init_cache(pcfg, b, max_len, device="cpu")
     step = jax.jit(ref_M.decode_step, static_argnums=(2,))
     r = np.random.default_rng(5)
     start = np.array([0, 3, 7], np.int32)

@@ -47,7 +47,7 @@ def _moe_params(arch, dname, sparsity=0.5):
     pcfg = dataclasses.replace(pt_smoke(arch), compute_dtype=dname)
     params = jax.tree.map(np.asarray, ref_prune(
         ref_init_params(jax.random.PRNGKey(1), cfg), sparsity))
-    return cfg, pcfg, params, params_from_numpy(params)
+    return cfg, pcfg, params, params_from_numpy(params, device="cpu")
 
 
 _ref_moe = jax.jit(ref_L.moe_ffn, static_argnums=(2,),
@@ -186,7 +186,8 @@ def _engines(arch, slots, sparsity, dname):
     params = jax.tree.map(np.asarray,
                           ref_init_params(jax.random.PRNGKey(0), cfg))
     pt = PtEngine(pcfg, num_slots=slots, max_len=32, sparsity=sparsity,
-                  seed=0, params=params_from_numpy(params), device="cpu")
+                  seed=0, params=params_from_numpy(params, device="cpu"),
+                  device="cpu")
     trace = poisson_trace(6, rate=0.8, seed=7, vocab_size=cfg.vocab_size,
                           max_new=(6, 12))
     return ref, pt, trace
@@ -272,7 +273,8 @@ def test_dense_dispatch_counts_activated_experts():
     ref_d = RefEngine(cfg, num_slots=2, max_len=32, seed=0,
                       stream_weights=False)
     pt_d = PtEngine(pt.cfg, num_slots=2, max_len=32, seed=0,
-                    params=params_from_numpy(params), stream_weights=False,
+                    params=params_from_numpy(params, device="cpu"),
+                    stream_weights=False,
                     device="cpu")
     a, b = ref_d.weight_stream_report(), pt_d.weight_stream_report()
     for key in ("sparse_bytes_per_step", "dense_bytes_per_step",

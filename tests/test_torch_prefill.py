@@ -66,12 +66,12 @@ def test_prefill_hidden_matches_reference(arch, dname, packed):
     pcfg = dataclasses.replace(pt_smoke(arch), compute_dtype=dname)
     params = jax.tree.map(np.asarray, ref_prune(
         ref_M.init_params(jax.random.PRNGKey(2), cfg), 0.5))
-    pt_params = params_from_numpy(params)
+    pt_params = params_from_numpy(params, device="cpu")
     ref_pk = ref_pack_model(params).blocks if packed else None
     pt_pk = pt_pack_model(pt_params).blocks if packed else None
     b, max_len, c = 3, 40, 4
     ref_cache = ref_M.init_cache(cfg, b, max_len)
-    pt_cache = pt_M.init_cache(pcfg, b, max_len)
+    pt_cache = pt_M.init_cache(pcfg, b, max_len, device="cpu")
     r = np.random.default_rng(3)
     for s in range(3):          # some cache lines already written
         tok = r.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
@@ -114,7 +114,7 @@ def _engines(arch, slots, chunk, dname="float32", sparsity=0.5):
     params = jax.tree.map(np.asarray,
                           ref_M.init_params(jax.random.PRNGKey(0), cfg))
     pt = PtEngine(pcfg, num_slots=slots, max_len=48, sparsity=sparsity,
-                  seed=0, params=params_from_numpy(params),
+                  seed=0, params=params_from_numpy(params, device="cpu"),
                   prefill_chunk=chunk, device="cpu")
     trace = poisson_trace(6, rate=0.8, seed=5, vocab_size=cfg.vocab_size,
                           prompt_len=(2, 14), max_new=(4, 10))
