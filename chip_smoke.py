@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (one ``nvcc`` per source, all at once, linked into one library with
    five entry points: ``bitmap_spmm``, ``bitmap_spmm_grouped``,
    ``flash_attention``, ``block_sparse`` and ``nm_spmm``; registers,
-   shared memory and spills from ptxas).
+   shared memory and spills from ptxas).  For each K3 / K4 variant it
+   prints its registers, spilled bytes and the count of tensor-core
+   instructions (``HMMA``) in its SASS (``cuobjdump -sass`` on the built
+   library), and fails if a bf16 wide-M variant of either has none.
 2. Kernels against their plain versions: ``bitmap_spmm`` (K1) at every
    olmo-1b decode shape (rows M in {1, 4, 8, 130}, weights pruned to
    {0, 0.5, 0.75, 0.95}) and at granite-moe-3b-a800m's attention and
@@ -65,7 +68,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    timed in bf16 (K2 at each shape, K3 / K4 at M = 4 and 2048) beside
    its bound, its plain version and the library call
    (``scaled_dot_product_attention``, ``torch.matmul`` on the dense
-   bf16 weight), none of which the port calls.
+   bf16 weight), none of which the port calls; K3 / K4 with their
+   TFLOP/s and path (``kernels/tile_product.plan``), K3 at M = 4 also
+   on the FMA path.
 
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
 its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
@@ -198,11 +203,97 @@ def card_and_build() -> str:
             print(f"  {line.split(chr(39))[1][:90]}")
         elif "Used" in line or "spill" in line:
             print(f"    {line.strip()}")
+    tile_product_variants(built)
     entries = [bitmap_spmm._entry(), bitmap_spmm._entry(grouped=True),
                flash_attention._entry(), block_sparse._entry(),
                nm_spmm._entry()]
     print(f"entry points: {', '.join(fn.__name__ for fn in entries)}")
     return smi
+
+
+def _toolkit_tool(name: str) -> str:
+    from repro_torch.kernels import _build
+    return str(pathlib.Path(_build._nvcc()).parent / name)
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel: (registers, spill store + load bytes)} from the
+    build's ``-Xptxas -v`` output."""
+    regs, spills, entry, props = {}, {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Function properties for" in line:
+            props = line.split("for ")[-1].strip()
+        elif "spill stores" in line and props:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills[props] = nums[1] + nums[2]
+        elif "Used" in line and "registers" in line and entry:
+            regs[entry] = int(line.split("Used")[1].split()[0])
+    return {name: (r, spills.get(name, 0)) for name, r in regs.items()}
+
+
+SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "BAR")
+
+
+def sass_counts(lib: pathlib.Path) -> dict:
+    """{mangled kernel: {op: count}} of the ``SASS_OPS`` in its SASS
+    (tensor-core products, shared-memory matrix loads, cp.async copies,
+    barriers), from ``cuobjdump -sass`` on the built library."""
+    sass = subprocess.run([_toolkit_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            for op in SASS_OPS:
+                if f" {op}" in line:
+                    counts[name][op] += 1
+    return counts
+
+
+def demangle(names) -> dict:
+    names = list(names)
+    try:
+        out = subprocess.run([_toolkit_tool("cu++filt")], input="\n".join(
+            names), capture_output=True, text=True, check=True,
+            timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = names
+    return dict(zip(names, out)) if len(out) == len(names) else {
+        n: n for n in names}
+
+
+def tile_product_variants(built) -> None:
+    """Phase 1 for K3 / K4: each variant's registers, spills and SASS
+    instruction counts; fails unless every bf16 wide-M (tensor-core)
+    variant of both kernels has HMMA instructions."""
+    report = ptxas_report(built.log)
+    sass = sass_counts(built.path)
+    ours = sorted(n for n in sass if "block_sparse" in n or "nm_spmm" in n)
+    plain = demangle(ours)
+    wide = {"block_sparse": 0, "nm_spmm": 0}
+    print(f"K3 / K4 variants ({len(ours)}): registers, spilled bytes, "
+          f"{' / '.join(SASS_OPS)} instructions in the SASS (cuobjdump "
+          f"-sass)")
+    for name in ours:
+        regs, spill = report.get(name, (None, None))
+        label = plain[name].replace("(anonymous namespace)::", "")
+        label = label.split("(")[0].replace("__nv_bfloat16", "bf16")
+        ops = " / ".join(str(sass[name][op]) for op in SASS_OPS)
+        print(f"  {label}: {regs} registers, {spill} bytes spilled, {ops}")
+        if "mma_wide" in name:
+            kernel = "block_sparse" if "block_sparse" in name else "nm_spmm"
+            assert sass[name]["HMMA"] > 0, f"{label}: no HMMA instruction"
+            wide[kernel] += 1
+    assert wide == {"block_sparse": 4, "nm_spmm": 4}, wide
+    spilled = [n for n in ours if report.get(n, (0, 0))[1]]
+    print(f"K3 / K4: {len(ours)} variants, {len(spilled)} spilling; every "
+          f"bf16 wide-M variant ({sum(wide.values())}) runs HMMA")
 
 
 def _compare(name, out, ref, k, dt) -> float:
@@ -874,7 +965,10 @@ def time_matmul(name, label, x, bw, kernel):
     """K3 or K4 on one weight at one M: kernel and ``torch.matmul`` on
     the dense bf16 weight as CUDA-graph replays cycling input sets past
     the L2, the plain version eagerly; bound from the weight's surviving
-    blocks (K3) or kept values (K4) in this run."""
+    blocks (K3) or kept values (K4) in this run; TFLOP/s over the same
+    operations.  K3 at decode M is also timed on the FMA path."""
+    from repro_torch.kernels import block_sparse
+    from repro_torch.kernels.tile_product import Plan, plan
     m, k = x.shape
     n = bw.shape[1]
     if name == "nm_spmm":
@@ -900,13 +994,23 @@ def time_matmul(name, label, x, bw, kernel):
     t_l = graph_ms(lambda: [torch.matmul(a, w) for a, w in dense],
                    20) / len(sets)
     b_ms, by = bound_ms(moved, 2 * m * kept)
-    print(f"  {name} {label} M={m}: kernel {t_k:.4f} ms | bound "
-          f"{b_ms:.4f} ms ({by}) = {100 * b_ms / t_k:.1f}% | plain "
-          f"{t_p:.4f} ms | torch.matmul dense bf16 {t_l:.4f} ms")
+    p = plan(m, x.dtype, bw.block[0])
+    extra, alt = {}, ""
+    if name == "block_sparse_matmul" and p.path == "decode":
+        # the FMA path on the same call, for the decode path's choice
+        t_f = graph_ms(lambda: [block_sparse.block_sparse_matmul(
+            a, w, p=Plan("fma", 8)) for a, w in sets], 20) / len(sets)
+        extra, alt = {"fma_path_ms": t_f}, f" | FMA path {t_f:.4f} ms"
+    tflops = 2 * m * kept / t_k / 1e9
+    print(f"  {name} {label} M={m}: kernel ({p.path} path) {t_k:.4f} ms, "
+          f"{tflops:.1f} TFLOP/s | bound {b_ms:.4f} ms ({by}) = "
+          f"{100 * b_ms / t_k:.1f}% | plain {t_p:.4f} ms | torch.matmul "
+          f"dense bf16 {t_l:.4f} ms{alt}")
     del sets, dense
     return {"shape": f"{label}, M={m}", "ms": t_k, "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": by, "library_ms": t_l,
-            "library": "torch.matmul dense bf16"}
+            "library": "torch.matmul dense bf16", "path": p.path,
+            "tflops": tflops, **extra}
 
 
 def kernel_layer_phase(olmo_cfg, gemma_cfg, device, gen,

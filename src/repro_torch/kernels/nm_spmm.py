@@ -9,11 +9,14 @@ with the port's other kernels into one library at first use
 (``_build``).  The JAX package has no ``ops`` entry for N:M, so the
 dispatch between the kernel and its plain version lives here.
 
-Bound: at decode M the compressed weight bytes (values + one index byte
-per value), at M = 2048 the kept values' multiply-adds.  Each tile is
-decompressed into shared memory once per row tile of X; at decode M the
-K tiles are split across blocks with a fixed-order second pass (see the
-source's header).
+Paths (``tile_product.plan``): bf16 X at wide M decompresses each K
+tile once per 128-row tile, straight into a bf16 stage (a scatter of
+the kept values into zeroed groups, loaded one stage ahead), and runs
+it on the tensor cores, bound by the dense tile's multiply-adds; bf16 X at
+decode M builds no dense tile and walks the kept values (EIM), bound by
+their bytes (values + one index byte each), its K tiles split across
+blocks with a fixed-order second pass; float32 X keeps the float32 FMA
+path (see the source's header).
 """
 from __future__ import annotations
 
@@ -23,24 +26,25 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, _build, ops
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.tile_product import (check_operands, row_tile,
+from repro_torch.kernels.tile_product import (PATH_FLAG, Plan,
+                                              check_operands, plan,
                                               tile_splits)
 from repro_torch.sparse.nm import NmWeight
 
 
 def _entry():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.entry("nm_spmm_launch", *[p] * 5, *[i] * 12)
+    return _build.entry("nm_spmm_launch", *[p] * 5, *[i] * 13)
 
 
 def nm_spmm_cuda(x: torch.Tensor, w: NmWeight,
-                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                 out_dtype: torch.dtype | None = None,
+                 p: Plan | None = None) -> torch.Tensor:
     """``x @ W`` on the card: x (M, K) float32 or bfloat16 -> (M, N) in
     ``out_dtype`` (default ``x.dtype``).  Launches the CUDA kernel on the
-    current stream (no synchronisation) or raises."""
-    out_dtype = check_operands("nm_spmm", x,
-                               {"values": w.values, "idx": w.idx}, w.shape,
-                               w.block, out_dtype)
+    current stream (no synchronisation) or raises.  ``p`` is the path
+    and row tile, ``tile_product.plan``'s unless a caller comparing paths
+    names another."""
     k, n = w.shape
     bk, bn = w.block
     kt, nt = k // bk, n // bn
@@ -54,15 +58,21 @@ def nm_spmm_cuda(x: torch.Tensor, w: NmWeight,
                          f"{tuple(w.values.shape)} / {tuple(w.idx.shape)}")
     if w.idx.dtype != torch.int8:
         raise TypeError(f"idx must be int8, got {w.idx.dtype}")
+    out_dtype = check_operands("nm_spmm", x,
+                               {"values": w.values, "idx": w.idx}, w.shape,
+                               w.block, out_dtype)
+    if w.idx.data_ptr() % 8:   # read in 8-byte loads
+        raise ValueError("idx must be 8-byte aligned")
     m = x.shape[0]
+    p = p or plan(m, x.dtype, bk)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    splits = tile_splits(kt, nt, m, _build.sm_count(x.device))
+    splits = tile_splits(kt, nt, m, _build.sm_count(x.device), p)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     rc = _entry()(x.data_ptr(), w.values.data_ptr(), w.idx.data_ptr(),
                   out.data_ptr(),
                   partial.data_ptr() if partial is not None else None, m, k,
-                  n, bk, bn, nk, mg, splits, row_tile(m),
+                  n, bk, bn, nk, mg, splits, PATH_FLAG[p.path], p.rows,
                   _build.TYPE_FLAG[x.dtype], _build.TYPE_FLAG[w.values.dtype],
                   _build.TYPE_FLAG[out_dtype],
                   torch.cuda.current_stream(x.device).cuda_stream)

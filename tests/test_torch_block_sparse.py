@@ -2,6 +2,8 @@
 on the CPU) against the JAX package's pack and Pallas kernel (interpret
 mode) and oracle.  Tolerances are the reference sweep's: atol 2e-3·√K
 (float32), 2e-2·√K (bfloat16), rtol 1e-2."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -111,3 +113,64 @@ def test_out_dtype_and_bad_impl():
                                    ).dtype == torch.float32
     with pytest.raises(ValueError, match="impl"):
         ops.block_sparse_matmul(xb, pw, impl="pallas")
+
+
+def _refuses(exc, match, call):
+    with pytest.raises(exc, match=match):
+        call()
+
+
+def _host_cases():
+    """The host side of the tile products (``kernels/tile_product.py``):
+    the path and row tile of a call, its K splits, and the wrapper's
+    refusals, which come before anything is built or launched."""
+    from repro_torch.kernels import block_sparse
+    from repro_torch.kernels.tile_product import Plan, plan, tile_splits
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for m, wide in ((1, False), (4, False), (16, False), (17, True),
+                    (130, True), (2048, True)):
+        cases.append((f"plan-bf16-M{m}", lambda m=m, wide=wide: plan(
+            m, bf16, 128) == (Plan("tensor", 128) if wide
+                              else Plan("decode", 8))))
+        cases.append((f"plan-f32-M{m}", lambda m=m, wide=wide: plan(
+            m, f32, 128) == Plan("fma", 64 if wide else 8)))
+    # the bf16 paths stack 128 / BK tiles per stage: BK must divide 128
+    for bk in (24, 48, 96):
+        cases.append((f"plan-bf16-BK{bk}", lambda bk=bk: plan(4, bf16, bk)
+                      == Plan("fma", 8) and plan(64, bf16, bk)
+                      == Plan("fma", 64)))
+    cases.append(("plan-bf16-BK16", lambda: plan(64, bf16, 16)
+                  == Plan("tensor", 128)))
+    # decode M: about four blocks per SM, at most one per K step
+    for m, k_steps, cols, want in ((4, 16, 64, 9), (16, 16, 64, 5),
+                                   (4, 64, 16, 33), (1, 2, 64, 2)):
+        cases.append((f"splits-decode-M{m}-{k_steps}x{cols}",
+                      lambda m=m, k=k_steps, c=cols, want=want: tile_splits(
+                          k, c, m, 132, plan(m, bf16, 128)) == want))
+    # the tensor path aims at one block per SM: none at M = 2048
+    cases.append(("splits-tensor-M2048", lambda: tile_splits(
+        16, 16, 2048, 132, plan(2048, bf16, 128)) == 1))
+    cases.append(("splits-tensor-M130", lambda: tile_splits(
+        16, 64, 130, 132, plan(130, bf16, 128)) == 2))
+    w = torch.from_numpy(_case(4, 256, 128, (128, 128), 0.5, seed=1)[0])
+    bw = pack_block_sparse(w)
+    x = torch.zeros(4, 256, dtype=bf16)
+    cases.append(("refuses-cpu-tensor", lambda: _refuses(
+        ValueError, "CUDA", lambda: block_sparse.block_sparse_matmul(x, bw))))
+    odd = pack_block_sparse(torch.zeros(256, 96), block=(64, 48))
+    cases.append(("refuses-bad-block", lambda: _refuses(
+        ValueError, "BN % 32", lambda: block_sparse.block_sparse_matmul(
+            x, odd))))
+    cases.append(("refuses-bad-index-type", lambda: _refuses(
+        TypeError, "int32", lambda: block_sparse.block_sparse_matmul(
+            x, dataclasses.replace(bw, kidx=bw.kidx.long())))))
+    return cases
+
+
+@pytest.mark.parametrize("name,check", _host_cases(),
+                         ids=[c[0] for c in _host_cases()])
+def test_host_side(name, check):
+    reset_launches()
+    assert check() is not False, name
+    assert LAUNCHES["block_sparse_matmul"] == 0

@@ -240,6 +240,12 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d,
                                rtol=0)
 
 
+# Rows of X for K3 / K4: decode M (1, 4, 16: 8-row tiles), wide M (17 on
+# the other side of the switch; 130, 200 and 256 ragged or whole
+# 128-row tiles on the tensor cores for bf16 X, 64-row tiles for float32).
+ROWS = [1, 4, 16, 17, 130, 200, 256]
+
+
 def _block_case(k, n, block, p_zero, seed):
     r = np.random.default_rng(seed)
     kt, nt = k // block[0], n // block[1]
@@ -257,7 +263,7 @@ def _block_case(k, n, block, p_zero, seed):
     (256, 256, (64, 64), 1.0),                # every block dropped
     (2048, 8192, (128, 128), 0.5),            # olmo-1b gate/up
 ])
-@pytest.mark.parametrize("m", [1, 4, 130, 256])
+@pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 @pytest.mark.parametrize("vname", ["float32", "bfloat16"])
 @pytest.mark.parametrize("oname", [None, "float32", "bfloat16"])
@@ -293,7 +299,7 @@ def test_block_sparse_kernel_matches_plain(cuda, k, n, block, p_zero, m,
     (256, 128, (2, 8), (64, 64)),
     (2048, 8192, (2, 4), (128, 128)),         # olmo-1b gate/up
 ])
-@pytest.mark.parametrize("m", [1, 4, 130, 256])
+@pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 @pytest.mark.parametrize("vname", ["float32", "bfloat16"])
 @pytest.mark.parametrize("oname", [None, "float32", "bfloat16"])
@@ -322,6 +328,122 @@ def test_nm_kernel_matches_plain(cuda, k, n, nm, block, m, dname, vname,
     torch.testing.assert_close(expect.float(), (x.float() @ w.to(
         x.dtype).float()).to(expect.dtype).float(), atol=tol * np.sqrt(k),
         rtol=1e-2)
+
+
+def _check_product(out, expect, k, dname):
+    tol = 2e-2 if dname == "bfloat16" else 2e-3
+    torch.testing.assert_close(out.float(), expect.float(),
+                               atol=tol * np.sqrt(k), rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["block_sparse", "nm"])
+@pytest.mark.parametrize("vname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("oname", [None, "float32", "bfloat16"])
+def test_tile_products_full_width_wide(cuda, kernel, vname, oname):
+    """olmo-1b's gate/up at M = 2048 on the tensor cores (bf16 X only,
+    to bound the run time)."""
+    from repro_torch.kernels.nm_spmm import nm_spmm
+    from repro_torch.sparse import pack_block_sparse, pack_nm, prune_nm
+    k, n, m = 2048, 8192, 2048
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    out_dtype = TYPES[oname] if oname else None
+    if kernel == "nm":
+        w = prune_nm(torch.from_numpy(r.standard_normal((k, n)).astype(
+            np.float32)).to(cuda, TYPES[vname]), 2, 4)
+        bw = pack_nm(w, 2, 4, block=(128, 128))
+        fn, name = nm_spmm, "nm_spmm"
+    else:
+        w = _block_case(k, n, (128, 128), 0.5, seed=k + n)
+        bw = pack_block_sparse(torch.from_numpy(w).to(cuda, TYPES[vname]),
+                               block=(128, 128))
+        fn, name = ops.block_sparse_matmul, "block_sparse_matmul"
+    reset_launches()
+    out = fn(x, bw, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, name: 1}
+    assert out.dtype == (out_dtype or x.dtype) and out.shape == (m, n)
+    _check_product(out, fn(x, bw, impl="torch", out_dtype=out_dtype), k,
+                   "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 17, 200])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vname", ["float32", "bfloat16"])
+def test_block_sparse_empty_column_block(cuda, m, dname, vname):
+    """A column block with nnzb == 0 stores exact zeros, on every path."""
+    from repro_torch.sparse import pack_block_sparse
+    k, n, block = 256, 384, (64, 128)
+    w = _block_case(k, n, block, 0.3, seed=m)
+    w[:, 128:256] = 0.0
+    bw = pack_block_sparse(torch.from_numpy(w).to(cuda, TYPES[vname]),
+                           block=block)
+    assert int(bw.nnzb[1]) == 0 and int(bw.nnzb.sum()) > 0
+    x = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (m, k)).astype(np.float32)).to(cuda, TYPES[dname])
+    out = ops.block_sparse_matmul(x, bw)
+    torch.cuda.synchronize()
+    assert not out[:, 128:256].any()
+    _check_product(out, ops.block_sparse_matmul(x, bw, impl="torch"), k,
+                   dname)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 16, 17, 130])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vname", ["float32", "bfloat16"])
+def test_nm_kernel_ties_and_dropped_offsets(cuda, m, dname, vname):
+    """A hand-built ``NmWeight`` whose ``idx`` repeats an offset inside a
+    group (the plain version adds both values) and holds offsets outside
+    [0, M) (the plain version drops them), at decode and wide M."""
+    from repro_torch.kernels.nm_spmm import nm_spmm
+    from repro_torch.sparse import pack_nm, prune_nm
+    k, n = 256, 128
+    r = np.random.default_rng(m)
+    w = prune_nm(torch.from_numpy(r.standard_normal((k, n)).astype(
+        np.float32)), 2, 4)
+    nw = pack_nm(w, 2, 4, block=(128, 128))
+    idx = nw.idx.clone()                  # (KT, NT, BK / 4 * 2, BN)
+    idx[:, :, 0::8, 0::3] = idx[:, :, 1::8, 0::3]   # slot 0 = slot 1: a tie
+    idx[:, :, 3::8, 1::5] = 4                       # offset = M: dropped
+    idx[:, :, 5::8, 2::7] = 100                     # far outside the group
+    nw = dataclasses.replace(nw, values=nw.values.to(cuda, TYPES[vname]),
+                             idx=idx.to(cuda))
+    x = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)).to(
+        cuda, TYPES[dname])
+    reset_launches()
+    out = nm_spmm(x, nw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "nm_spmm": 1}
+    expect = nm_spmm(x, nw, impl="torch")
+    untouched = nm_spmm(x, pack_nm(w.to(cuda, TYPES[vname]), 2, 4,
+                                   block=(128, 128)), impl="torch")
+    assert not torch.equal(expect, untouched)   # the edits change W
+    _check_product(out, expect, k, dname)
+
+
+@pytest.mark.gpu
+def test_tile_products_refuse_a_plan_the_path_does_not_take(cuda):
+    """The entry points refuse a row tile that is not the path's and the
+    tensor-core paths for float32 X, with cudaErrorInvalidValue (1)."""
+    from repro_torch.kernels import block_sparse, nm_spmm
+    from repro_torch.kernels.tile_product import Plan
+    from repro_torch.sparse import pack_block_sparse, pack_nm, prune_nm
+    w = torch.randn(256, 128, device=cuda)
+    bw, nw = pack_block_sparse(w), pack_nm(prune_nm(w))
+    xb = torch.randn(32, 256, device=cuda, dtype=torch.bfloat16)
+    reset_launches()
+    for launch, weight in ((block_sparse.block_sparse_matmul, bw),
+                           (nm_spmm.nm_spmm_cuda, nw)):
+        for x, p in ((xb, Plan("tensor", 64)), (xb, Plan("decode", 128)),
+                     (xb, Plan("fma", 128)), (xb.float(), Plan("tensor", 128)),
+                     (xb.float(), Plan("decode", 8))):
+            with pytest.raises(RuntimeError, match="CUDA error 1"):
+                launch(x, weight, p=p)
+    assert LAUNCHES == NONE
 
 
 @pytest.mark.gpu

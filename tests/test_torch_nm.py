@@ -2,6 +2,8 @@
 the JAX package's prune, pack and Pallas kernel (interpret mode).
 Tolerances are the reference sweep's: atol 2e-3·√K (float32), 2e-2·√K
 (bfloat16), rtol 1e-2."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -121,3 +123,53 @@ def test_nm_spmm_any_rows(m):
     with pytest.raises(ValueError, match="impl"):
         nm_spmm(torch.from_numpy(x), pack_nm(torch.from_numpy(w), 2, 4),
                 impl="pallas")
+
+
+def _refuses(exc, match, call):
+    with pytest.raises(exc, match=match):
+        call()
+
+
+def _host_cases():
+    """The N:M wrapper's host side: the path it takes for each M (shared
+    with K3, ``tile_product.plan``), and its refusals, which come before
+    anything is built or launched."""
+    from repro_torch.kernels.nm_spmm import nm_spmm_cuda
+    from repro_torch.kernels.tile_product import Plan, plan, tile_splits
+    bf16 = torch.bfloat16
+    cases = []
+    for m, want in ((1, Plan("decode", 8)), (4, Plan("decode", 8)),
+                    (16, Plan("decode", 8)), (17, Plan("tensor", 128)),
+                    (130, Plan("tensor", 128)), (2048, Plan("tensor", 128))):
+        cases.append((f"plan-2:4-block-64-M{m}",
+                      lambda m=m, want=want: plan(m, bf16, 64) == want))
+    # olmo-1b's w_gate 2:4 at decode M: K tiles split over ~4 blocks/SM
+    for m, want in ((1, 9), (4, 9), (16, 5)):
+        cases.append((f"splits-w_gate-M{m}", lambda m=m, want=want:
+                      tile_splits(16, 64, m, 132, plan(m, bf16, 128))
+                      == want))
+    w = prune_nm(torch.randn(256, 128, generator=torch.Generator(
+        ).manual_seed(0)), 2, 4)
+    nw = pack_nm(w, 2, 4)
+    x = torch.zeros(4, 256, dtype=bf16)
+    cases.append(("refuses-cpu-tensor", lambda: _refuses(
+        ValueError, "CUDA", lambda: nm_spmm_cuda(x, nw))))
+    odd = pack_nm(prune_nm(torch.randn(256, 96), 2, 4), 2, 4,
+                  block=(128, 48))
+    cases.append(("refuses-bad-block", lambda: _refuses(
+        ValueError, "BN % 32", lambda: nm_spmm_cuda(x, odd))))
+    cases.append(("refuses-bad-pattern", lambda: _refuses(
+        ValueError, "N <= M", lambda: nm_spmm_cuda(x, dataclasses.replace(
+            nw, n_keep=5)))))
+    cases.append(("refuses-idx-type", lambda: _refuses(
+        TypeError, "int8", lambda: nm_spmm_cuda(x, dataclasses.replace(
+            nw, idx=nw.idx.to(torch.int32))))))
+    return cases
+
+
+@pytest.mark.parametrize("name,check", _host_cases(),
+                         ids=[c[0] for c in _host_cases()])
+def test_host_side(name, check):
+    reset_launches()
+    assert check() is not False, name
+    assert LAUNCHES["nm_spmm"] == 0
