@@ -13,17 +13,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (one ``nvcc`` per source, all at once, linked into one library with
    five entry points: ``bitmap_spmm``, ``bitmap_spmm_grouped``,
    ``flash_attention``, ``block_sparse`` and ``nm_spmm``; registers,
-   shared memory and spills from ptxas).  For each K3 / K4 variant it
-   prints its registers, spilled bytes and the count of tensor-core
-   instructions (``HMMA``) in its SASS (``cuobjdump -sass`` on the built
-   library), and fails if a bf16 wide-M variant of either has none.
+   shared memory and spills from ptxas).  For each variant of K1 / K1g,
+   K2 (path x head dim x type) and K3 / K4 it prints its registers,
+   spilled bytes and the counts of tensor-core (``HMMA``), ``ldmatrix``
+   (``LDSM``), ``cp.async`` and barrier instructions in its SASS
+   (``cuobjdump -sass`` on the built library), and fails if a bf16 K2
+   tensor-path variant or a bf16 wide-M K3 / K4 variant has no ``HMMA``.
 2. Kernels against their plain versions: ``bitmap_spmm`` (K1) at every
    olmo-1b decode shape (rows M in {1, 4, 8, 130}, weights pruned to
    {0, 0.5, 0.75, 0.95}) and at granite-moe-3b-a800m's attention and
    router shapes (the router's 40-wide output: BN = 40), and
    ``bitmap_spmm_grouped`` (K1g) at granite's 40-expert stacks, rows M
-   in {1, 4, 64, 130}, weights pruned to {0, 0.5, 0.95}; float32 and
-   bfloat16 X; atol 2e-3·√K (float32) / 2e-2·√K (bfloat16), rtol 1e-2.
+   in {1, 4, 64, 130}, weights pruned to {0, 0.5, 0.95}, and at the
+   same shapes a near-empty stack (sparsity 0.99), a stack with all-zero
+   tiles and a budget with budget % 4 != 0, each launched twice with
+   bit-identical outputs; float32 and bfloat16 X; atol 2e-3·√K (float32)
+   / 2e-2·√K (bfloat16), rtol 1e-2.
 3. olmo-1b: ``ServeEngine`` on the full configuration (16 layers, full
    widths, seeded random weights) at sparsity 0.5, 4 slots, serving a
    seeded Poisson trace of 8 requests: every request served its whole
@@ -65,8 +70,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    times the plain output's rms (per query row for K2, whole for K3 /
    K4), and a zero output must fail that limit at most non-zero
    elements.  Then each is
-   timed in bf16 (K2 at each shape, K3 / K4 at M = 4 and 2048) beside
-   its bound, its plain version and the library call
+   timed in bf16 (K2 at each shape, on the path ``flash_attention.plan``
+   picks and on its FMA body; K3 / K4 at M = 4 and 2048) beside its
+   bound, its plain version and the library call
    (``scaled_dot_product_attention``, ``torch.matmul`` on the dense
    bf16 weight), none of which the port calls; K3 / K4 with their
    TFLOP/s and path (``kernels/tile_product.plan``), K3 at M = 4 also
@@ -203,7 +209,7 @@ def card_and_build() -> str:
             print(f"  {line.split(chr(39))[1][:90]}")
         elif "Used" in line or "spill" in line:
             print(f"    {line.strip()}")
-    tile_product_variants(built)
+    kernel_variants(built)
     entries = [bitmap_spmm._entry(), bitmap_spmm._entry(grouped=True),
                flash_attention._entry(), block_sparse._entry(),
                nm_spmm._entry()]
@@ -268,32 +274,53 @@ def demangle(names) -> dict:
         n: n for n in names}
 
 
-def tile_product_variants(built) -> None:
-    """Phase 1 for K3 / K4: each variant's registers, spills and SASS
-    instruction counts; fails unless every bf16 wide-M (tensor-core)
-    variant of both kernels has HMMA instructions."""
-    report = ptxas_report(built.log)
+# Phase 1's variant groups: (label, which kernels, the variants that must
+# run HMMA, how many of those there must be).
+VARIANT_GROUPS = (
+    ("K1 / K1g", "bitmap_spmm_kernel", None, 0),
+    ("K2", "flash_attention", "flash_attention_mma", 4),
+    ("K3 / K4", ("block_sparse", "nm_spmm"), "mma_wide", 8),
+)
+
+
+def check_variants(report: dict, sass: dict, plain: dict) -> dict:
+    """Phase 1's table: for each group of ``VARIANT_GROUPS`` its variants'
+    registers, spilled bytes and SASS counts, printed; fails unless every
+    variant of the group that must run on the tensor cores (K2's bf16
+    tensor path at each head dim; K3's and K4's bf16 wide-M variants) has
+    HMMA instructions, and there are as many of them as expected.
+    Returns {group label: (variants, spilling, tensor variants)}."""
+    out = {}
+    for label, match, tensor, expect in VARIANT_GROUPS:
+        keys = (match,) if isinstance(match, str) else match
+        ours = sorted(n for n in sass if any(key in n for key in keys))
+        print(f"{label} variants ({len(ours)}): registers, spilled bytes, "
+              f"{' / '.join(SASS_OPS)} instructions in the SASS (cuobjdump "
+              f"-sass)")
+        mma = 0
+        for name in ours:
+            regs, spill = report.get(name, (None, None))
+            text = plain.get(name, name).replace("(anonymous namespace)::", "")
+            text = text.split("(")[0].replace("__nv_bfloat16", "bf16")
+            ops = " / ".join(str(sass[name][op]) for op in SASS_OPS)
+            print(f"  {text}: {regs} registers, {spill} bytes spilled, {ops}")
+            if tensor and tensor in name:
+                assert sass[name]["HMMA"] > 0, f"{text}: no HMMA instruction"
+                mma += 1
+        assert mma == expect, (label, mma, expect)
+        spilled = sum(1 for n in ours if report.get(n, (0, 0))[1])
+        print(f"{label}: {len(ours)} variants, {spilled} spilling"
+              + (f"; every tensor-core variant ({mma}) runs HMMA"
+                 if expect else ""))
+        out[label] = (len(ours), spilled, mma)
+    return out
+
+
+def kernel_variants(built) -> None:
+    """Phase 1 for every kernel: each variant's registers, spills and
+    SASS instruction counts (``check_variants``)."""
     sass = sass_counts(built.path)
-    ours = sorted(n for n in sass if "block_sparse" in n or "nm_spmm" in n)
-    plain = demangle(ours)
-    wide = {"block_sparse": 0, "nm_spmm": 0}
-    print(f"K3 / K4 variants ({len(ours)}): registers, spilled bytes, "
-          f"{' / '.join(SASS_OPS)} instructions in the SASS (cuobjdump "
-          f"-sass)")
-    for name in ours:
-        regs, spill = report.get(name, (None, None))
-        label = plain[name].replace("(anonymous namespace)::", "")
-        label = label.split("(")[0].replace("__nv_bfloat16", "bf16")
-        ops = " / ".join(str(sass[name][op]) for op in SASS_OPS)
-        print(f"  {label}: {regs} registers, {spill} bytes spilled, {ops}")
-        if "mma_wide" in name:
-            kernel = "block_sparse" if "block_sparse" in name else "nm_spmm"
-            assert sass[name]["HMMA"] > 0, f"{label}: no HMMA instruction"
-            wide[kernel] += 1
-    assert wide == {"block_sparse": 4, "nm_spmm": 4}, wide
-    spilled = [n for n in ours if report.get(n, (0, 0))[1]]
-    print(f"K3 / K4: {len(ours)} variants, {len(spilled)} spilling; every "
-          f"bf16 wide-M variant ({sum(wide.values())}) runs HMMA")
+    check_variants(ptxas_report(built.log), sass, demangle(sass))
 
 
 def _compare(name, out, ref, k, dt) -> float:
@@ -377,6 +404,59 @@ def kernel_against_plain(device, gen, shapes, rows, sparsities,
                   f"max |kernel - plain| f32 {errs[torch.float32]:.3g} "
                   f"bf16 {errs[torch.bfloat16]:.3g} over M={list(rows)}")
             del bw, plain_w, w
+    return worst
+
+
+def with_budget(bw, budget: int):
+    """``bw`` packed with a larger ``budget``: its value slots padded with
+    zeros (the same weight; with budget % 4 != 0 most tiles' values start
+    off a 16-byte boundary)."""
+    values = torch.nn.functional.pad(bw.values, (0, budget - bw.budget))
+    return dataclasses.replace(bw, values=values.contiguous())
+
+
+def grouped_edge_cases(device, gen, expert_shapes, rows, groups) -> float:
+    """Phase 2's K1g cases beyond the sweep, at granite's expert shapes:
+    a near-empty stack (sparsity 0.99, what global pruning at 0.5 leaves
+    of granite's ``w_down``), a stack with all-zero tiles, and a budget
+    with budget % 4 != 0.  Each against its plain version, float32 and
+    bf16 X, and launched twice: the two outputs must be bit-identical.
+    Returns the largest absolute difference seen."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.packed import choose_block
+    from repro_torch.sparse import pack_bitmap_experts, per_tensor_prune
+    worst = 0.0
+    for name, k, n in expert_shapes:
+        block = choose_block(k, n)
+        base = torch.randn(groups, k, n, generator=gen, device=device)
+        near_empty = per_tensor_prune(base, 0.99)
+        holes = per_tensor_prune(base, 0.5)
+        holes[::3, : block[0], :] = 0.0        # every third expert: a zero
+        holes[1::4, :, : block[1]] = 0.0       # K row or N column of tiles
+        packed = {"sparsity 0.99": pack_bitmap_experts(near_empty[None],
+                                                       block=block),
+                  "all-zero tiles": pack_bitmap_experts(holes[None],
+                                                        block=block)}
+        bw = packed["all-zero tiles"]
+        packed["budget % 4 = 3"] = with_budget(bw, bw.budget | 3)
+        for label, bw in packed.items():
+            bw = bw.period(0)
+            err = 0.0
+            for m in rows:
+                for dt in (torch.float32, torch.bfloat16):
+                    x = torch.randn(groups, m, k, generator=gen,
+                                    device=device).to(dt)
+                    out = ops.bitmap_spmm_grouped(x, bw, impl="cuda")
+                    again = ops.bitmap_spmm_grouped(x, bw, impl="cuda")
+                    ref = ops.bitmap_spmm_grouped(x, bw, impl="torch")
+                    sync()
+                    assert torch.equal(out, again), (name, label, m, dt)
+                    err = max(err, _compare(f"{name} {label} M={m}", out,
+                                            ref, k, dt))
+            worst = max(worst, err)
+            print(f"  {name} G={groups} K={k} N={n} {label}: budget "
+                  f"{bw.budget}, max |kernel - plain| {err:.3g} over "
+                  f"M={list(rows)}, f32 and bf16; two launches bit-identical")
     return worst
 
 
@@ -546,7 +626,7 @@ def profile_steps(eng, steps: int = 6) -> None:
         print("profiler: no device time seen; idle share not measured")
         return
     spmm_us = sum(t for k, t in kernels
-                  if "bitmap_spmm" in k or "sum_splits" in k)
+                  if "bitmap_spmm" in k)
     top = sorted(kernels, key=lambda kt: -kt[1])[:4]
     print(f"profiler {eng.cfg.name}, {steps} decode steps: "
           f"{wall_us / steps / 1e3:.2f} ms per step, device busy "
@@ -930,14 +1010,17 @@ def time_attention(label, q, k, v, window):
     """K2 at one shape: kernel and SDPA as CUDA-graph replays cycling
     input sets past the L2, the plain version eagerly (once: it is
     slow); bound from this call's live score pairs."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import live_pairs
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.kernels.flash_attention import live_pairs, plan
     b, hq, sq, d = q.shape
     moved = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     sets = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
                           for _ in range(_copies(moved) - 1)]
     t_k = graph_ms(lambda: [ops.flash_attention(*s, window=window)
                             for s in sets], 10) / len(sets)
+    # the FMA body on the same inputs, beside the path the plan picks
+    t_f = graph_ms(lambda: [flash_attention.flash_attention(
+        *s, window=window, path="fma") for s in sets], 10) / len(sets)
     t_p = time_ms(lambda: ops.flash_attention(q, k, v, impl="torch",
                                               window=window), 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -949,16 +1032,20 @@ def time_attention(label, q, k, v, window):
     lib_err = (sdpa(q, k, v, **args).float()
                - ops.flash_attention(q, k, v, window=window).float()
                ).abs().max().item()
+    path = plan(q.dtype, d)
     print(f"  K2 {label} {tuple(q.shape)} kv {tuple(k.shape)} window "
-          f"{window}: kernel {t_k:.4f} ms | bound {b_ms:.4f} ms ({by}; "
-          f"{pairs} live pairs) = {100 * b_ms / t_k:.1f}% | "
-          f"{4 * d * pairs / t_k / 1e9:.1f} TFLOP/s | plain {t_p:.4f} ms | "
+          f"{window}: kernel ({path} path) {t_k:.4f} ms | bound {b_ms:.4f} "
+          f"ms ({by}; {pairs} live pairs) = {100 * b_ms / t_k:.1f}% | "
+          f"{4 * d * pairs / t_k / 1e9:.1f} TFLOP/s | FMA path {t_f:.4f} ms "
+          f"({4 * d * pairs / t_f / 1e9:.1f} TFLOP/s) | plain {t_p:.4f} ms | "
           f"SDPA ({backend}) {t_l:.4f} ms, max |SDPA - kernel| "
           f"{lib_err:.3g}")
     del sets
     return {"shape": label, "window": window, "ms": t_k, "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": by, "library_ms": t_l,
-            "library": f"scaled_dot_product_attention ({backend})"}
+            "library": f"scaled_dot_product_attention ({backend})",
+            "path": path, "tflops": 4 * d * pairs / t_k / 1e9,
+            "fma_path_ms": t_f}
 
 
 def time_matmul(name, label, x, bw, kernel):
@@ -1148,9 +1235,12 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         kernel_against_plain(device, gen, olmo_shapes, ROWS, SPARSITIES),
         kernel_against_plain(device, gen, granite_shapes, GRANITE_ROWS,
                              GRANITE_SPARSITIES))}
-    worst["bitmap_spmm_grouped"] = kernel_against_plain(
-        device, gen, expert_shapes, GRANITE_ROWS, GRANITE_SPARSITIES,
-        groups=granite_cfg.num_experts)
+    worst["bitmap_spmm_grouped"] = max(
+        kernel_against_plain(device, gen, expert_shapes, GRANITE_ROWS,
+                             GRANITE_SPARSITIES,
+                             groups=granite_cfg.num_experts),
+        grouped_edge_cases(device, gen, expert_shapes, GRANITE_ROWS,
+                           granite_cfg.num_experts))
     print(f"kernels against plain: {dict(LAUNCHES)} comparison launches, "
           f"max |kernel - plain| {worst}")
     reset_launches()

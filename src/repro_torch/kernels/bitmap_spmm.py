@@ -12,15 +12,20 @@ other kernels into one library at first use (``_build``).
 Bound: at decode M (1..8 rows) each weight byte feeds at most eight
 multiply-adds, so the kernel is bound by the compressed weight bytes
 (bitmap + values + row starts) it streams from device memory, not by
-arithmetic.  The design reads every weight byte once per 8 rows of X,
-copies each tile's values to shared memory with all its loads in flight
-at once (``cp.async``), and splits K across blocks so that a decode
-step's narrow outputs still fill the card; the wrapper picks the split
-from the card's SM count (see the source's header for the rest).
+arithmetic.  The design walks the flat list of weight tiles with a
+persistent grid, each block a near-equal range of whole chunks of it,
+its tiles brought into a ring of shared-memory stages by bulk copies
+(the copy engine) and walked by the block's warps; a K range split
+between blocks is added by the last block to arrive, in block order,
+within the same launch (see the source's header).  The call's plan
+(rows of X per tile, block size, ring depth, grid, stage layout,
+scratch) is made here: ``stream_plan``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Tuple
 
 import torch
@@ -28,23 +33,253 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.sparse.format import BitmapWeight
 
+THREADS = (256, 512)         # threads per block: many tiles, few
+MAX_DYN_BYTES = 232448 - 1024   # the kernel's dynamic shared memory cap
+# Largest cluster the plan forms: clusters of 12 blocks sped granite's
+# 12-tile K ranges up, clusters of 16 slowed olmo-1b's (PERF.md, PR 15).
+MAX_CLUSTER = 12
+
 
 def _entry(grouped: bool = False):
     """K1's entry point, or with ``grouped`` K1g's."""
     p, i = ctypes.c_void_p, ctypes.c_int
     if grouped:
-        return _build.entry("bitmap_spmm_grouped_launch", *[p] * 6, *[i] * 11)
-    return _build.entry("bitmap_spmm_launch", *[p] * 6, *[i] * 10)
+        return _build.entry("bitmap_spmm_grouped_launch", *[p] * 7,
+                            *[i] * 22)
+    return _build.entry("bitmap_spmm_launch", *[p] * 7, *[i] * 21)
 
 
-def k_splits(kt: int, nt: int, m: int, sms: int, groups: int = 1,
-             rows: int = 8) -> int:
-    """How many blocks share the K tiles of one (group, column tile,
-    block of ``rows`` rows): enough for about four blocks per SM (two run
-    at once, the rest queue behind them), at most one per K tile.  More
-    splits mean more float32 partial sums to add."""
-    blocks = groups * nt * -(-m // rows)
-    return max(1, min(kt, -(-4 * sms // blocks)))
+def row_tile(m: int) -> int:
+    """Rows of X per tile: 4 at up to four rows (the decode step), else
+    8."""
+    return 4 if m <= 4 else 8
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """One call's launch plan (see ``stream_plan``)."""
+    rows: int          # rows of X per tile (the kernel's MR)
+    bn: int            # columns of a tile
+    threads: int       # threads per block
+    tiles: int         # weight tiles walked: G x row blocks x NT x KT
+    outputs: int       # output tiles: G x row blocks x NT (one counter each)
+    blocks: int        # persistent blocks, each a range of whole chunks
+    chunk: int         # tiles per chunk (divides KT)
+    stages: int        # ring stages per block
+    stage_bytes: int   # one ring stage: values, bitmap, row starts, X
+    off_bits: int
+    off_rs: int
+    off_x: int
+    scratch: int       # after the ring: see ``scratch_bytes``
+    cluster: int = 1   # > 1: an output tile's KT blocks form a cluster
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory: the ring, then the scratch."""
+        return self.stages * self.stage_bytes + self.scratch
+
+    @property
+    def partial_floats(self) -> int:
+        """float32 scratch: two partial output tiles per block (its first
+        and last output tile, when another block shares their K range);
+        none when clusters add the partials in shared memory."""
+        if self.blocks == 1 or self.cluster > 1:
+            return 0
+        return 2 * self.blocks * self.rows * self.bn
+
+
+def scratch_bytes(bk: int, bn: int, rows: int, threads: int) -> int:
+    """Shared memory after the ring: the warps' float32 sums of four rows
+    of X (an output tile's 8 rows are added in two passes), the tile's X
+    slice widened to float32, the dense walk's word starts (one int per
+    bitmap word), and the block's float32 partial for a cluster."""
+    return (4 * (threads // 32) * 4 * bn + 4 * rows * bk + 16 * bk
+            + 4 * rows * bn)
+
+
+def stage_layout(budget: int, vbytes: int, bk: int, bn: int, rows: int,
+                 xbytes: int) -> Tuple[int, int, int, int]:
+    """(stage bytes, bitmap offset, row-start offset, X offset) of one
+    ring stage.  The values, the bitmap and the row starts take their
+    16-byte-aligned copy windows (up to 15 bytes more than their own);
+    X's slice is ``rows`` rows of the tile's K in X's type."""
+    off_bits = _up16(budget * vbytes + 15)
+    off_rs = off_bits + _up16(bk * (bn // 8) + 15)
+    off_x = off_rs + _up16(4 * bk + 15)
+    return off_x + _up16(rows * bk * xbytes), off_bits, off_rs, off_x
+
+
+def range_start(p: StreamPlan, b: int) -> int:
+    """First tile of block ``b``'s range: whole chunks, as equal in number
+    as they divide (the kernel's ``range_start``)."""
+    return p.tiles // p.chunk * b // p.blocks * p.chunk
+
+
+def block_of(p: StreamPlan, t: int) -> int:
+    """The block whose range holds tile ``t`` (the kernel's ``block_of``)."""
+    return ((t // p.chunk + 1) * p.blocks - 1) // (p.tiles // p.chunk)
+
+
+def chunk_size(tiles: int, kt: int, slots: int) -> int:
+    """Tiles per chunk of the blocks' ranges: the largest divisor of KT
+    whose chunks still share the tiles among ``slots`` blocks within an
+    eighth of an equal share (or one tile).  Whole K ranges per block
+    need no fold of partial sums; small chunks balance the blocks."""
+    for c in range(kt, 0, -1):
+        if kt % c:
+            continue
+        chunks = tiles // c
+        most = -(-chunks // min(slots, chunks)) * c
+        if c == 1 or most <= 1.125 * tiles / min(slots, tiles):
+            return c
+    return 1
+
+
+def plan_with(groups: int, m: int, kt: int, nt: int, bk: int, bn: int,
+              budget: int, vbytes: int, xbytes: int, sms: int, per_sm,
+              threads: int, stages: int) -> StreamPlan | None:
+    """The plan of one call with blocks of ``threads`` threads and a ring
+    of ``stages`` stages, or None when such a block does not fit on an
+    SM.  ``per_sm(rows, threads, smem)`` says how many blocks of the
+    variant fit on an SM (the card's occupancy), ``sms`` how many SMs the
+    card has.  The grid is as many blocks as fit on the card, at most one
+    per chunk of tiles."""
+    rows = row_tile(m)
+    tiles = groups * -(-m // rows) * nt * kt
+    stage, off_bits, off_rs, off_x = stage_layout(budget, vbytes, bk, bn,
+                                                  rows, xbytes)
+    scratch = scratch_bytes(bk, bn, rows, threads)
+    smem = stages * stage + scratch
+    fit = per_sm(rows, threads, smem) if smem <= MAX_DYN_BYTES else 0
+    if fit < 1:
+        return None
+    chunk = chunk_size(tiles, kt, sms * fit)
+    return StreamPlan(rows, bn, threads, tiles, tiles // kt,
+                      min(tiles // chunk, sms * fit), chunk, stages, stage,
+                      off_bits, off_rs, off_x, scratch)
+
+
+def stream_plan(groups: int, m: int, kt: int, nt: int, bk: int, bn: int,
+                budget: int, vbytes: int, xbytes: int, sms: int, per_sm,
+                clusters=None) -> StreamPlan:
+    """The plan of one call (see ``plan_with``), the rule measured on an
+    H100 (PERF.md, PR 15): blocks of 512 threads when the call has at
+    most one tile per SM (one tile's walk is then the path, so it takes
+    the most warps), else 256 (several blocks per SM, whose loads and
+    walks overlap each other's); one ring stage, or two when a block
+    walks 2 to 4 tiles and the second stage costs no block per SM (it
+    loads the next tile during the walk; over longer ranges it slowed the
+    walks, a block walking one tile has nothing to prefetch, and where
+    it cost a block per SM, olmo-1b's gate/up calls were slower).
+    When every block walks one tile and an output tile's KT blocks (2 to
+    ``MAX_CLUSTER``) can all be resident as clusters (``clusters(rows,
+    threads, smem, size)`` says how many fit on the card), they add their
+    partials in distributed shared memory instead of through memory and a
+    counter."""
+    tiles = groups * -(-m // row_tile(m)) * nt * kt
+    threads = THREADS[1] if tiles <= sms else THREADS[0]
+    args = (groups, m, kt, nt, bk, bn, budget, vbytes, xbytes, sms, per_sm,
+            threads)
+    one = plan_with(*args, 1)
+    if one is None:
+        raise RuntimeError(f"no block of {threads} threads fits on an SM "
+                           f"(budget {budget})")
+    two = plan_with(*args, 2)
+    walked = -(-one.tiles // one.chunk // one.blocks) * one.chunk
+    p = (two if two is not None and two.blocks >= one.blocks
+         and 2 <= walked <= 4 else one)
+    if (clusters is not None and p.chunk == 1 and p.blocks == p.tiles
+            and 2 <= kt <= MAX_CLUSTER
+            and clusters(p.rows, threads, p.smem, kt) * kt >= p.tiles):
+        return dataclasses.replace(p, cluster=kt)
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _per_sm(x_bf16: int, v_bf16: int, rows: int, threads: int,
+            smem: int) -> int:
+    """Blocks of a variant of ``threads`` threads with ``smem`` bytes of
+    shared memory that fit on an SM (the CUDA occupancy query)."""
+    fn = _build.library().bitmap_spmm_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn(x_bf16, v_bf16, rows, threads, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters(x_bf16: int, v_bf16: int, rows: int, threads: int, smem: int,
+              size: int) -> int:
+    """Clusters of ``size`` such blocks that can be resident on the card
+    at once (the CUDA occupancy query)."""
+    fn = _build.library().bitmap_spmm_clusters
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    return fn(x_bf16, v_bf16, rows, threads, smem, size)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(groups: int, m: int, kt: int, nt: int, bk: int, bn: int,
+          budget: int, vbytes: int, xbytes: int, sms: int, x_bf16: int,
+          v_bf16: int) -> StreamPlan:
+    return stream_plan(groups, m, kt, nt, bk, bn, budget, vbytes, xbytes, sms,
+                       lambda rows, threads, smem: _per_sm(
+                           x_bf16, v_bf16, rows, threads, smem),
+                       lambda rows, threads, smem, size: _clusters(
+                           x_bf16, v_bf16, rows, threads, smem, size))
+
+
+def x_bulk(x: torch.Tensor, bk: int) -> int:
+    """1 when the rows of X's tile slices start on 16 bytes and are a
+    multiple of 16 bytes long, so that the kernel copies them in bulk;
+    else its threads load them."""
+    row = x.element_size()
+    return int(x.data_ptr() % 16 == 0 and (x.shape[-1] * row) % 16 == 0
+               and (bk * row) % 16 == 0)
+
+
+_COUNTERS: dict = {}
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` counters on ``device``.
+    The kernel leaves every counter it uses at zero, so one buffer serves
+    every launch on the device's stream; a larger one replaces it when a
+    call needs more, and the old one is kept alive, since a captured CUDA
+    graph may still point at it."""
+    bufs = _COUNTERS.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1 << 16), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
+
+def _launch(name: str, x: torch.Tensor, w: BitmapWeight, out: torch.Tensor,
+            groups: int, kt: int, nt: int, bk: int, bn: int) -> None:
+    """Plan and launch one K1 (``groups`` 0) or K1g call into ``out``."""
+    m = x.shape[-2]
+    xf, vf = _build.TYPE_FLAG[x.dtype], _build.TYPE_FLAG[w.values.dtype]
+    plan = _plan(max(groups, 1), m, kt, nt, bk, bn, w.budget,
+                 w.values.element_size(), x.element_size(),
+                 _build.sm_count(x.device), xf, vf)
+    partial = (torch.empty(plan.partial_floats, dtype=torch.float32,
+                           device=x.device) if plan.partial_floats else None)
+    cnt = counters(x.device, plan.outputs)
+    lead = (groups,) if groups else ()
+    rc = _entry(grouped=bool(groups))(
+        x.data_ptr(), w.packed_bits.data_ptr(), w.values.data_ptr(),
+        w.row_start.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None, cnt.data_ptr(),
+        *lead, m, kt, nt, bk, bn, w.budget, plan.rows, plan.threads,
+        plan.blocks, plan.cluster, plan.chunk, plan.stages, plan.stage_bytes, plan.off_bits,
+        plan.off_rs, plan.off_x, plan.smem, x_bulk(x, bk), xf, vf,
+        _build.TYPE_FLAG[out.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(name, rc)
+    LAUNCHES[name] += 1
 
 
 def _check(x: torch.Tensor, w: BitmapWeight,
@@ -118,18 +353,7 @@ def bitmap_spmm(x: torch.Tensor, w: BitmapWeight,
     out = torch.empty((m, nt * bn), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    splits = k_splits(kt, nt, m, _build.sm_count(x.device))
-    partial = (torch.empty((splits, m, nt * bn), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    fn = _entry()
-    rc = fn(x.data_ptr(), w.packed_bits.data_ptr(), w.values.data_ptr(),
-            w.row_start.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None, m, kt, nt,
-            bk, bn, w.budget, splits, _build.TYPE_FLAG[x.dtype],
-            _build.TYPE_FLAG[w.values.dtype], _build.TYPE_FLAG[out_dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch("bitmap_spmm", rc)
-    LAUNCHES["bitmap_spmm"] += 1
+    _launch("bitmap_spmm", x, w, out, 0, kt, nt, bk, bn)
     return out
 
 
@@ -149,18 +373,7 @@ def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
     out = torch.empty((g, m, nt * bn), dtype=out_dtype, device=x.device)
     if m == 0 or g == 0:
         return out
-    splits = k_splits(kt, nt, m, _build.sm_count(x.device), groups=g)
-    partial = (torch.empty((splits, g, m, nt * bn), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    fn = _entry(grouped=True)
-    rc = fn(x.data_ptr(), w.packed_bits.data_ptr(), w.values.data_ptr(),
-            w.row_start.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None, g, m, kt,
-            nt, bk, bn, w.budget, splits, _build.TYPE_FLAG[x.dtype],
-            _build.TYPE_FLAG[w.values.dtype], _build.TYPE_FLAG[out_dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch("bitmap_spmm_grouped", rc)
-    LAUNCHES["bitmap_spmm_grouped"] += 1
+    _launch("bitmap_spmm_grouped", x, w, out, g, kt, nt, bk, bn)
     return out
 
 

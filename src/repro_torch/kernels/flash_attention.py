@@ -8,11 +8,18 @@ other kernels into one library at first use (``_build``).
 
 Bound: at the models' sequence lengths the kernel is bound by its
 operations (4·D per live score pair), not by the bytes of Q, K, V and
-the output.  The design keeps a Q tile in shared memory, streams each
-K/V tile into shared memory once per query tile with ``cp.async`` (the
-next tile's copy overlapping the current product), and skips the KV
-tiles that the causal mask or the window masks wholly.  It uses the FMA
-units, not the tensor cores (see the source's header).
+the output.  Both paths stream each K/V tile into shared memory once per
+query tile with ``cp.async`` (the next tile's copy overlapping the
+current products) and skip the KV tiles that the causal mask or the
+window masks wholly.  The path is chosen here and only here (``plan``):
+- ``"tensor"``: bf16 Q/K/V on the tensor cores (``mma.sync``,
+  FlashAttention-2 style: 64 query rows per block of 4 warps, the
+  softmax on the score fragments in registers, p handed to the PV
+  product as bf16 fragments without a trip through shared memory);
+- ``"fma"``: float32 (which the plain version computes in full float32,
+  so TF32 tensor cores would change the numbers) on the FMA units; a
+  caller comparing the two paths may also name it for bf16.
+See the source's header for the rest.
 """
 from __future__ import annotations
 
@@ -23,12 +30,22 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 
 HEAD_DIMS = (32, 64, 128, 256)
+PATH_FLAG = {"fma": 0, "tensor": 1}
+
+
+def plan(dtype: torch.dtype, d: int) -> str:
+    """The path of a call with Q/K/V of ``dtype`` and head dim ``d``:
+    bf16 on the tensor cores at every head dim the kernel takes, float32
+    on the FMA units."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    return "tensor" if dtype == torch.bfloat16 else "fma"
 
 
 def _entry():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.entry("flash_attention_launch", *[p] * 4, *[i] * 8,
-                        ctypes.c_float, i)
+                        ctypes.c_float, i, i)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,18 +88,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    path: str | None = None) -> torch.Tensor:
     """Attention on the card: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D),
     float32 or bfloat16 -> (B, Hq, Sq, D) in q's type.  Launches the CUDA
-    kernel on the current stream (no synchronisation) or raises."""
+    kernel on the current stream (no synchronisation) or raises.
+    ``path`` is ``plan``'s unless a caller comparing paths names another
+    (the tensor path takes bf16 only)."""
     _check(q, k, v, window)
     b, hq, sq, d = q.shape
+    path = path or plan(q.dtype, d)
+    if path not in PATH_FLAG:
+        raise ValueError(f"path must be one of {tuple(PATH_FLAG)}, got "
+                         f"{path!r}")
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, hq, hkv, sq, skv, d, int(causal), window or 0,
-                  d ** -0.5, _build.TYPE_FLAG[q.dtype],
+                  d ** -0.5, _build.TYPE_FLAG[q.dtype], PATH_FLAG[path],
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1

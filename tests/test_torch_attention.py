@@ -15,7 +15,9 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.kernels.flash_attention import flash_attention as ref_kernel
 from repro_torch.kernels import LAUNCHES, ops, reset_launches
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import live_pairs
+from repro_torch.kernels.flash_attention import plan as fa_plan
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -95,3 +97,28 @@ def test_flash_attention_rejects_unknown_impl():
     q = torch.zeros(1, 1, 4, 32)
     with pytest.raises(ValueError, match="impl"):
         ops.flash_attention(q, q, q, impl="pallas")
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dname,path", [("bfloat16", "tensor"),
+                                        ("float32", "fma")])
+def test_plan_picks_the_path_from_type_and_head_dim(d, dname, path):
+    """bf16 runs on the tensor cores at every head dim the kernel takes;
+    float32 keeps the FMA units (TF32 would change its numbers)."""
+    assert fa_plan(DTYPES[dname][1], d) == path
+
+
+def test_plan_refuses_a_head_dim_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="head dim"):
+        fa_plan(torch.bfloat16, 96)
+
+
+def test_cpu_tensor_never_reaches_either_path():
+    """The wrapper raises on CPU tensors whatever the path asked for, and
+    an unknown path is refused; nothing is counted."""
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    reset_launches()
+    for path in (None, "tensor", "fma"):
+        with pytest.raises(ValueError, match="CUDA"):
+            fa_kernel(q, q, q, path=path)
+    assert LAUNCHES["flash_attention"] == 0

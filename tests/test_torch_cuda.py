@@ -484,3 +484,126 @@ def test_new_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="K="):
         nm_spmm.nm_spmm(torch.zeros(4, 128, device=cuda), nw)
     assert LAUNCHES == NONE
+
+
+# K2's tensor-core path (bf16, mma.sync) against the plain version at the
+# reference sweep's bf16 tolerance (atol 5e-2), over head dims, GQA
+# groups, masks and lengths; and the FMA body on the same bf16 inputs.
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (128, 128, True, None),
+    (200, 200, True, 64),
+    (150, 90, False, None),        # Sq != Skv, no mask
+    (70, 50, True, 8),             # rows with no live key at all
+    (1, 77, False, None),          # one query row
+    (1, 77, True, 16),             # one row, causal: only key 0 is live
+    (257, 300, False, 40),         # ragged, window without causal
+])
+@pytest.mark.parametrize("path", ["tensor", "fma"])
+def test_flash_attention_paths_match_plain(cuda, d, group, sq, skv, causal,
+                                           window, path):
+    from repro_torch.kernels import flash_attention
+    q, k, v = _attn_case(cuda, 1, 2 * group, 2, sq, skv, d, "bfloat16",
+                         seed=sq + skv + d + group)
+    reset_launches()
+    out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window, path=path)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "flash_attention": 1}
+    expect = ops.flash_attention(q, k, v, impl="torch", causal=causal,
+                                 window=window)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), expect.float(), atol=5e-2,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_tensor_path_refuses_float32(cuda):
+    """The tensor path takes bf16 only: float32 is refused with
+    cudaErrorInvalidValue (1), not run on the FMA units instead."""
+    from repro_torch.kernels import flash_attention
+    q = torch.randn(1, 2, 64, 64, device=cuda)
+    reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        flash_attention.flash_attention(q, q, q, path="tensor")
+    with pytest.raises(ValueError, match="path"):
+        flash_attention.flash_attention(q, q, q, path="wgmma")
+    assert LAUNCHES == NONE
+
+
+# K1 and K1g (one persistent launch per call, the fold of split output
+# tiles inside it) against the plain version: rows that fill 4- and 8-row
+# X tiles and their ragged ends, up to 40 groups, all-zero tiles, a
+# budget with budget % 4 != 0, a 0.99-sparse stack; two launches give the
+# same bits.
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 9, 130])
+@pytest.mark.parametrize("g,k,n,block", [
+    (1, 2048, 2048, (128, 128)),    # K1, olmo-1b's projections
+    (40, 1536, 512, (128, 128)),    # K1g, granite's gate/up stack
+    (40, 512, 1536, (128, 128)),    # K1g, granite's down stack
+    (3, 96, 48, (96, 24)),          # narrow tiles, generic bitmap rows
+])
+@pytest.mark.parametrize("case", ["holes", "odd_budget", "sparse"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_bitmap_kernels_edge_cases_match_plain(cuda, m, g, k, n, block, case,
+                                               dname):
+    r = np.random.default_rng(k + n + m + g)
+    w = r.standard_normal((g, k, n)).astype(np.float32)
+    w *= r.random(w.shape) >= (0.99 if case == "sparse" else 0.5)
+    w[::2, : block[0], :] = 0.0                  # all-zero tiles
+    w[1::3, :, : block[1]] = 0.0
+    bw = pack_bitmap_experts(torch.from_numpy(w[None]).to(cuda),
+                             block=block).period(0)
+    if case == "odd_budget":   # most tiles' values start off 16 bytes
+        pad = (bw.budget | 3) - bw.budget
+        bw = dataclasses.replace(bw, values=torch.nn.functional.pad(
+            bw.values, (0, pad)).contiguous())
+        assert bw.budget % 4 == 3
+    x = torch.from_numpy(r.standard_normal((g, m, k)).astype(
+        np.float32)).to(cuda, TYPES[dname])
+    reset_launches()
+    if g == 1:
+        out, again = (ops.bitmap_spmm(x[0], bw.period(0))[None]
+                      for _ in range(2))
+        name = "bitmap_spmm"
+    else:
+        out, again = (ops.bitmap_spmm_grouped(x, bw) for _ in range(2))
+        name = "bitmap_spmm_grouped"
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, name: 2}
+    assert torch.equal(out, again)
+    expect = ops.bitmap_spmm_grouped(x, bw, impl="torch")
+    tol = 2e-2 if dname == "bfloat16" else 2e-3
+    torch.testing.assert_close(out.float(), expect.float(),
+                               atol=tol * np.sqrt(k), rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_bitmap_kernel_split_output_tiles_are_folded_in_one_launch(cuda):
+    """A call whose output tiles' K ranges are split between blocks (few
+    column tiles, long K) folds its partials inside the one launch: the
+    plan has more blocks than output tiles, two launches agree bit for
+    bit, and the counters are left at zero."""
+    from repro_torch.kernels import bitmap_spmm as kernel_mod
+    r = np.random.default_rng(5)
+    w = r.standard_normal((8192, 256)).astype(np.float32)
+    w *= r.random(w.shape) >= 0.5
+    bw = pack_bitmap(torch.from_numpy(w).to(cuda))
+    x = torch.from_numpy(r.standard_normal((4, 8192)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    kt, nt = bw.packed_bits.shape[:2]
+    plan = kernel_mod.stream_plan(
+        1, 4, kt, nt, 128, 128, bw.budget, 4, 2,
+        kernel_mod._build.sm_count(cuda),
+        lambda rows, threads, smem: kernel_mod._per_sm(1, 0, rows, threads,
+                                                       smem))
+    assert plan.blocks > plan.outputs
+    out, again = (ops.bitmap_spmm(x, bw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert not kernel_mod.counters(cuda, plan.outputs)[:plan.outputs].any()
+    torch.testing.assert_close(out.float(), ops.bitmap_spmm(
+        x, bw, impl="torch").float(), atol=2e-2 * np.sqrt(8192), rtol=1e-2)

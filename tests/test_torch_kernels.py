@@ -128,18 +128,6 @@ def test_hbm_traffic_model_matches_reference():
     assert ref == pt
 
 
-@pytest.mark.parametrize("kt,nt,m,expect", [
-    (16, 16, 4, 16),     # 2048-wide output: one K tile per block
-    (64, 16, 4, 33),     # K = 8192: 33 splits of 2 tiles (the kernel uses 32)
-    (16, 393, 4, 2),     # the head already has 393 column tiles
-    (16, 64, 130, 1),    # 17 row blocks of X fill the card without a split
-    (1, 1, 1, 1),
-])
-def test_k_splits_fill_the_card_without_empty_splits(kt, nt, m, expect):
-    splits = pt_kernel.k_splits(kt, nt, m, sms=132)
-    assert splits == expect and 1 <= splits <= kt
-
-
 @pytest.mark.parametrize("g", [1, 5, 8])
 @pytest.mark.parametrize("m", [1, 4, 12])
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
@@ -179,11 +167,156 @@ def test_grouped_traffic_model_is_g_calls_of_one_group():
     assert six["sparse_bytes"] == 6 * one["sparse_bytes"]
 
 
-@pytest.mark.parametrize("g,kt,nt,m,expect", [
-    (40, 12, 4, 4, 4),      # granite gate/up at decode: 160 column tiles
-    (40, 4, 12, 4, 2),      # granite down: 480 column tiles
-    (40, 12, 4, 64, 1),     # prefill M = 64: 1,280 blocks already
-    (1, 16, 16, 4, 16),     # one group: K1's split
+# The K1/K1g launch plan (``stream_plan``): a persistent grid splitting
+# the flat tile list into equal ranges, partial output tiles folded by
+# the last block to arrive.  The shapes are the served ones: granite's
+# expert stacks (gate/up, and down at 0.99 sparsity), olmo-1b's
+# projections, head and down, granite's router, and prefill rows.
+PLAN_CASES = [
+    # groups, m, kt, nt, bk, bn, budget, value bytes, X bytes
+    (40, 4, 12, 4, 128, 128, 12500, 4, 2),    # granite gate/up, decode
+    (40, 4, 4, 12, 128, 128, 300, 4, 2),      # granite down, 0.99 sparse
+    (40, 64, 12, 4, 128, 128, 12500, 4, 2),   # granite gate/up, prefill
+    (1, 4, 16, 16, 128, 128, 8400, 4, 2),     # olmo-1b qkvo
+    (1, 4, 64, 16, 128, 128, 8415, 4, 2),     # olmo-1b down
+    (1, 4, 16, 393, 128, 128, 8419, 4, 2),    # olmo-1b head
+    (1, 4, 12, 1, 128, 40, 2626, 4, 2),       # granite router
+    (1, 130, 16, 64, 128, 128, 16384, 4, 4),  # dense tiles, 17 row blocks
+    (1, 1, 1, 1, 64, 8, 1, 2, 4),             # one tile
+    (5, 9, 2, 2, 32, 24, 333, 4, 2),          # budget % 4 != 0
+]
+
+
+def _occupancy(rows, threads, smem):
+    """Blocks per SM as shared memory and a 128-register thread allow."""
+    return min(65536 // (128 * threads), pt_kernel.MAX_DYN_BYTES // smem)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_stream_plan_walks_every_tile_once(case):
+    """Every block walks a non-empty range of whole chunks (a chunk
+    divides KT), the ranges cover the tiles once and within an eighth of
+    an equal share (or one chunk), ``block_of`` inverts
+    ``range_start``, and the partial slots the kernel uses for split
+    output tiles are distinct and inside the scratch ``partial_floats``
+    sizes."""
+    g, m, kt, nt, bk, bn, budget, vb, xb = case
+    plan = pt_kernel.stream_plan(g, m, kt, nt, bk, bn, budget, vb, xb,
+                                 sms=132, per_sm=_occupancy)
+    rows = 4 if m <= 4 else 8
+    assert plan.rows == rows
+    assert plan.stages in (1, 2)
+    assert plan.smem <= pt_kernel.MAX_DYN_BYTES
+    assert plan.tiles == g * -(-m // rows) * nt * kt
+    assert plan.outputs == plan.tiles // kt and kt % plan.chunk == 0
+    assert plan.threads == (512 if plan.tiles <= 132 else 256)
+    slots = 132 * _occupancy(rows, plan.threads, plan.smem)
+    assert 1 <= plan.blocks <= min(plan.tiles // plan.chunk, slots)
+    starts = [pt_kernel.range_start(plan, b) for b in range(plan.blocks + 1)]
+    assert starts[0] == 0 and starts[-1] == plan.tiles
+    sizes = [b - a for a, b in zip(starts, starts[1:])]
+    assert min(sizes) >= 1 and all(n % plan.chunk == 0 for n in sizes)
+    assert max(sizes) <= max(1.125 * plan.tiles / min(slots, plan.tiles),
+                             plan.chunk)
+    for b in range(plan.blocks):
+        for t in {starts[b], starts[b + 1] - 1}:
+            assert pt_kernel.block_of(plan, t) == b
+    used = set()
+    for o in range(plan.outputs):
+        b0 = pt_kernel.block_of(plan, o * kt)
+        b1 = pt_kernel.block_of(plan, o * kt + kt - 1)
+        if b0 == b1:
+            continue
+        for b in range(b0, b1 + 1):
+            slot = 2 * b + (0 if o == starts[b] // kt else 1)
+            assert slot not in used
+            used.add(slot)
+    assert all((s + 1) * rows * bn <= plan.partial_floats for s in used)
+
+
+def test_chunks_keep_k_ranges_whole_where_that_balances():
+    """granite's 0.99-sparse down (KT 4) gets whole K ranges per block
+    (no fold), its gate/up (KT 12) chunks of 4 tiles."""
+    occ = _occupancy
+    down = pt_kernel.stream_plan(40, 4, 4, 12, 128, 128, 300, 4, 2,
+                                 sms=132, per_sm=lambda *_: 1)
+    assert down.chunk == 4
+    up = pt_kernel.stream_plan(40, 4, 12, 4, 128, 128, 12500, 4, 2,
+                               sms=132, per_sm=occ)
+    assert up.chunk == 4 and up.blocks == 264 and up.stages == 1
+
+
+@pytest.mark.parametrize("budget,vbytes,bk,bn,rows,xbytes", [
+    (16384, 4, 128, 128, 8, 4),  # a dense tile, 8 rows
+    (8419, 4, 128, 128, 4, 2),   # olmo-1b at sparsity 0.5, decode
+    (300, 4, 128, 128, 4, 2),    # 0.99 sparse: small stages
+    (333, 2, 32, 24, 8, 4),      # bf16 values, odd budget and tile
 ])
-def test_k_splits_count_the_groups(g, kt, nt, m, expect):
-    assert pt_kernel.k_splits(kt, nt, m, sms=132, groups=g) == expect
+def test_stage_layout_fits_the_windows(budget, vbytes, bk, bn, rows, xbytes):
+    """The values', bitmap's and row starts' 16-byte copy windows (up to
+    15 bytes more than their own) fit before the next part, every part
+    starts on 16 bytes, X's slice ends the stage, and the ring is as deep
+    as shared memory allows beside the warps' sums and the widened X."""
+    stage, off_bits, off_rs, off_x = pt_kernel.stage_layout(
+        budget, vbytes, bk, bn, rows, xbytes)
+    assert all(v % 16 == 0 for v in (stage, off_bits, off_rs, off_x))
+    assert budget * vbytes + 15 <= off_bits
+    assert off_bits + bk * bn // 8 + 15 <= off_rs
+    assert off_rs + 4 * bk + 15 <= off_x
+    assert off_x + rows * bk * xbytes <= stage < off_x + rows * bk * xbytes + 16
+    plan = pt_kernel.stream_plan(1, rows, 64, 1, bk, bn, budget, vbytes,
+                                 xbytes, sms=132, per_sm=_occupancy)
+    assert plan.stage_bytes == stage
+    assert plan.smem == (plan.stages * stage
+                         + plan.threads // 32 * 16 * bn
+                         + 4 * rows * bk + 16 * bk + 4 * rows * bn)
+    assert plan.stages in (1, 2)
+    assert plan.smem <= pt_kernel.MAX_DYN_BYTES
+
+
+def test_stream_plan_refuses_what_does_not_fit():
+    with pytest.raises(RuntimeError, match="fits"):
+        pt_kernel.stream_plan(1, 4, 2, 2, 128, 128, 16384, 4, 2, sms=132,
+                              per_sm=lambda *_: 0)
+    assert [pt_kernel.row_tile(m) for m in (1, 4, 5, 8, 9, 130)] == [
+        4, 4, 8, 8, 8, 8]
+
+
+@pytest.mark.parametrize("case,fit,cluster", [
+    ((1, 4, 12, 4, 128, 128, 12400, 4, 2), 8, 12),    # granite k_v
+    ((1, 4, 12, 1, 128, 40, 3890, 4, 2), 8, 12),      # granite router
+    ((1, 4, 12, 4, 128, 128, 12400, 4, 2), 3, 1),     # too few clusters fit
+    ((1, 4, 64, 1, 128, 128, 8415, 4, 2), 8, 1),      # KT 64: no cluster
+    ((1, 4, 16, 16, 128, 128, 8400, 4, 2), 32, 1),    # KT 16: above the cap
+    ((40, 4, 12, 4, 128, 128, 12500, 4, 2), 8, 1),    # blocks walk 7 tiles
+])
+def test_stream_plan_clusters_one_tile_blocks(case, fit, cluster):
+    """Clusters add the partials when every block walks one tile, an
+    output tile's KT blocks (2 to 16) make one cluster, and the card holds
+    them all at once; then no partial scratch is needed."""
+    plan = pt_kernel.stream_plan(*case, sms=132, per_sm=_occupancy,
+                                 clusters=lambda rows, threads, smem, size:
+                                 fit)
+    assert plan.cluster == cluster
+    if cluster > 1:
+        assert plan.blocks == plan.tiles and plan.chunk == 1
+        assert plan.partial_floats == 0
+
+
+@pytest.mark.parametrize("case,stages", [
+    ((1, 4, 16, 64, 128, 128, 8424, 4, 2), 2),     # olmo gate/up: 2 tiles
+    ((1, 4, 64, 16, 128, 128, 8398, 4, 2), 2),     # olmo down: 4 tiles
+    ((40, 4, 12, 4, 128, 128, 12500, 4, 2), 1),    # granite gate/up: 8
+    ((1, 4, 16, 393, 128, 128, 8429, 4, 2), 1),    # olmo head: 24
+    ((1, 4, 12, 12, 128, 128, 12446, 4, 2), 1),    # granite q_o: one tile
+])
+def test_second_stage_only_for_short_ranges(case, stages):
+    """A block walking 2 to 4 tiles loads the next during the walk; one
+    walking more, or one tile, keeps a single stage; so does one whose
+    second stage would cost a block per SM."""
+    plan = pt_kernel.stream_plan(*case, sms=132, per_sm=_occupancy)
+    assert plan.stages == stages
+    fewer = pt_kernel.stream_plan(
+        *case, sms=132, per_sm=lambda rows, threads, smem:
+        3 if smem < 80000 else 2)
+    assert fewer.stages == 1

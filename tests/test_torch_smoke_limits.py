@@ -91,3 +91,63 @@ def test_matmul_limit(smoke, case, dname):
                (x.float() @ w - x[:, :64].float() @ w[:64, :]).to(dtype))
         with pytest.raises(AssertionError, match="differs from plain"):
             smoke.scaled_compare("K3", out, plain, fixed, rms)
+
+
+# Phase 1's check of the built variants (``check_variants``), rehearsed on
+# made-up SASS counts: it passes when every tensor-core variant of K2
+# (bf16, one per head dim) and of K3 / K4 (bf16 wide M) runs HMMA, and
+# fails when one does not or one is missing.
+def _variants(k2_hmma=(8, 8, 8, 8)):
+    names = [f"k1_bitmap_spmm_kernel_{i}" for i in range(8)]
+    names += [f"k2_flash_attention_kernel_{i}" for i in range(8)]
+    names += [f"k2_flash_attention_mma_{d}" for d in range(len(k2_hmma))]
+    names += [f"block_sparse_mma_wide_{i}" for i in range(4)]
+    names += [f"nm_spmm_mma_wide_{i}" for i in range(4)]
+    sass = {n: dict.fromkeys(("HMMA", "LDSM", "LDGSTS", "BAR"), 0)
+            for n in names}
+    for d, hmma in enumerate(k2_hmma):
+        sass[f"k2_flash_attention_mma_{d}"]["HMMA"] = hmma
+    for n in names:
+        if "mma_wide" in n:
+            sass[n]["HMMA"] = 48
+    report = {n: (96, 0) for n in names}
+    return report, sass, {n: n for n in names}
+
+
+def test_phase1_check_passes_tensor_variants(smoke):
+    seen = smoke.check_variants(*_variants())
+    assert seen == {"K1 / K1g": (8, 0, 0), "K2": (12, 0, 4),
+                    "K3 / K4": (8, 0, 8)}
+
+
+@pytest.mark.parametrize("k2_hmma", [(8, 8, 0, 8), (8, 8, 8)])
+def test_phase1_check_fails_a_k2_variant_without_hmma(smoke, k2_hmma):
+    with pytest.raises(AssertionError):
+        smoke.check_variants(*_variants(k2_hmma))
+
+
+def test_phase5_times_the_fma_body_beside_the_tensor_path(smoke,
+                                                          monkeypatch):
+    """``time_attention`` on the CPU with the timers and the kernel
+    wrapper faked: it times the planned path through the kernel layer and
+    the FMA body through the wrapper with ``path="fma"``, and reports
+    both."""
+    from repro_torch.kernels import flash_attention
+    paths = []
+
+    def fake(q, k, v, *, causal=True, window=None, path=None):
+        paths.append(path)
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+    def once(fn, reps):
+        fn()
+        return 1.0
+
+    monkeypatch.setattr(flash_attention, "flash_attention", fake)
+    monkeypatch.setattr(smoke, "graph_ms", once)
+    monkeypatch.setattr(smoke, "time_ms", once)
+    monkeypatch.setattr(smoke, "_sdpa_backend", lambda *a: "MATH")
+    q, k, v = _attn_inputs(torch.bfloat16, s=64, d=32)
+    res = smoke.time_attention("rehearsal", q, k, v, None)
+    assert "fma" in paths and res["path"] == "tensor"
+    assert res["fma_path_ms"] > 0 and res["ms"] > 0 and res["bound_ms"] > 0
