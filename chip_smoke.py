@@ -36,8 +36,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    layers + the head), no dense copy of a packed weight on the card, and
    one decode step's logits through the kernel agreeing with the plain
    version; the dense-dispatch engine serves the same trace as a
-   yardstick.  Then K1 is timed at the four decode shapes (M = 4) and
-   over one decode step's 113 launches.
+   yardstick.  On the same weights two paged runs (``serve/paging.py``,
+   pages of 16 tokens): (a) the prompt walk over the default pool,
+   whose tokens must equal the contiguous engine's, 113 K1 launches per
+   step, and one paged decode step's logits through the kernels agreeing
+   with the plain version; (b) shared-prefix reuse and recompute-on-
+   preempt with chunked prefill (16) on a 160-token pool that 8
+   requests (a common 32-token prefix, 1-8 own tokens, budgets 16-48)
+   overrun: at least one prefix hit and one preemption, the allocator's
+   audit clean after the drain, and tokens equal to a contiguous chunked
+   engine's, or parting only at a step where that run's top-2 logit
+   margin is within 2e-2·√d_model (printed with the request and the
+   step).  Then K1 is timed at the four decode shapes (M = 4) and over
+   one decode step's 113 launches.
 4. granite-moe-3b-a800m: ``ServeEngine`` on the full configuration (32
    layers, 40 experts top-8, full widths, seeded random weights) at
    sparsity 0.5, 4 slots, ``max_len`` 256, serving 8 requests with
@@ -48,6 +59,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    per decode step and per prefill call, no dense copy of a packed
    weight; one decode step's logits and one prefill call's hidden
    states through the kernels agree with the plain versions.  The
+   chunked run again on paged KV (pages of 16 tokens) must serve the
+   contiguous chunked run's tokens with the same launch counts.  The
    dense-dispatch engine serves the same trace.  Then K1g is timed over
    all 32 layers' expert stacks at M = 4, K1 over granite's 160
    projections, a whole decode step's 256 launches, and the card's idle
@@ -466,20 +479,22 @@ def assert_no_dense_copy(eng) -> None:
     assert all(bw.values.is_cuda for _, bw in eng.packed.leaves())
 
 
-def per_step(eng) -> dict:
-    """Kernel launches one decode step (or prefill call) makes: one per
-    packed leaf per period, plus the head when it is packed."""
+def per_step(eng, prefill: bool = False) -> dict:
+    """Kernel launches one decode step (or, ``prefill``, one prefill
+    call) makes: one per packed leaf per period, plus the head when it is
+    packed (decode steps only: a prefill call has no head)."""
     cfg = eng.cfg
     layouts = [e.layout for e in eng.packed.packed_entries]
+    head = eng.lm_weight is not None and not prefill
     return {"bitmap_spmm": cfg.num_periods * layouts.count("stacked")
-            + (eng.lm_weight is not None),
+            + head,
             "bitmap_spmm_grouped": cfg.num_periods * layouts.count("grouped")}
 
 
 def serve(eng, trace, label: str) -> dict:
     """Serve ``trace`` on a warm engine with the launch counts set to 0
     just before and read just after; returns its report with the
-    counts."""
+    counts, the served tokens and the prompt lengths."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serve import RequestState
     eng.warmup()
@@ -489,6 +504,8 @@ def serve(eng, trace, label: str) -> dict:
     reqs = [eng.submit(**spec) for spec in trace]
     rep = eng.run()
     rep["launches"] = dict(LAUNCHES)
+    rep["tokens"] = [list(r.tokens) for r in reqs]
+    rep["prompt_lens"] = [len(r.prompt) for r in reqs]
     for r in reqs:
         assert r.state is RequestState.DONE, (r.rid, r.state)
         assert len(r.tokens) == r.max_new_tokens, (r.rid, len(r.tokens))
@@ -508,18 +525,20 @@ def serve(eng, trace, label: str) -> dict:
 def check_counts(eng, rep, label: str) -> dict:
     """Every kernel of the path ran, exactly its per-step count for each
     decode step and prefill call; returns the path's record."""
-    expect = per_step(eng)
-    calls = eng.decode_steps + rep["prefill"]["calls"]
+    expect, per_call = per_step(eng), per_step(eng, prefill=True)
+    calls = rep["prefill"]["calls"]
     for name, n in expect.items():
-        assert rep["launches"][name] == n * calls, (name, rep["launches"],
-                                                    expect, calls)
+        want = n * eng.decode_steps + per_call[name] * calls
+        assert rep["launches"][name] == want, (name, rep["launches"],
+                                               expect, per_call, calls)
         if n:
             assert rep["launches"][name] > 0, (name, label)
-    print(f"main path {label}: {rep['launches']} = {expect} per call x "
-          f"({eng.decode_steps} decode steps + {rep['prefill']['calls']} "
-          f"prefill calls)")
+    print(f"main path {label}: {rep['launches']} = {expect} per decode "
+          f"step x {eng.decode_steps} + {per_call} per prefill call x "
+          f"{calls}")
     return {name: {"path": label, "launches": rep["launches"][name],
                    "launches_per_step": n,
+                   "launches_per_prefill_call": per_call[name],
                    "decode_steps": eng.decode_steps,
                    "prefill_calls": rep["prefill"]["calls"]}
             for name, n in expect.items() if n}
@@ -554,23 +573,31 @@ def agree(got: torch.Tensor, want: torch.Tensor, label: str,
 
 def decode_step_check(eng, gen) -> None:
     """One decode step through the kernels against the same step through
-    the plain versions, on copies of the engine's cache."""
+    the plain versions, on copies of the engine's cache.  A paged engine
+    steps through page tables that give each slot its own pages."""
     from repro_torch.models.model import decode_step
     cfg, device = eng.cfg, eng.device
     tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
                         device=device)
     pos = torch.tensor([3, 17, 64, 200], device=device)
+    tables = None
+    if eng.page_len:
+        tables = {b: torch.arange(1, 4 * p.page_slots + 1,
+                                  device=device).reshape(4, p.page_slots)
+                  for b, p in eng.kv.pools.items()}
     out = {}
     for impl in (None, "torch"):
         cache = {b: {k: t.clone() for k, t in leaf.items()}
                  for b, leaf in eng.kv.cache.items()}
         out[impl], _ = decode_step(eng.params, cache, cfg, tok, pos,
                                    lm_weight=eng.lm_weight,
-                                   packed=eng.packed.blocks, lm_impl=impl)
+                                   packed=eng.packed.blocks, lm_impl=impl,
+                                   page_tables=tables)
         del cache
     sync()
     assert out[None].shape == (4, cfg.vocab_size)
-    agree(out[None], out["torch"], "decode-step logits")
+    agree(out[None], out["torch"],
+          "paged decode-step logits" if tables else "decode-step logits")
 
 
 def prefill_call_check(eng, gen, chunk: int) -> None:
@@ -636,9 +663,139 @@ def profile_steps(eng, steps: int = 6) -> None:
           + ", ".join(f"{k[:40]} {t / steps / 1e3:.2f} ms" for k, t in top))
 
 
+def record_margins(eng) -> dict:
+    """Keep each slot's top-2 logit margin by (rid, position) at every
+    decode step of ``eng``."""
+    margins = {}
+    decode = eng._decode
+
+    def recording():
+        nxt, logits, cache = decode()
+        top2 = logits.float().topk(2, dim=-1).values
+        m = (top2[:, 0] - top2[:, 1]).tolist()
+        for slot, req in eng.scheduler.active.items():
+            margins[(req.rid, int(eng._pos[slot]))] = m[slot]
+        return nxt, logits, cache
+
+    eng._decode = recording
+    return margins
+
+
+def same_tokens_or_near_tie(got: dict, want: dict, margins: dict, d: int,
+                            label: str) -> int:
+    """``got``'s tokens equal ``want``'s, or a request parts only at a
+    step where ``want``'s run had a top-2 margin within 2e-2·√d (a near
+    tie that bf16 rounding may break either way).  Prints each parting;
+    returns how many requests parted."""
+    tol = 2e-2 * math.sqrt(d)
+    parted = 0
+    for rid, (a, b) in enumerate(zip(want["tokens"], got["tokens"])):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        pos = want["prompt_lens"][rid] - 1 + i
+        margin = margins[(rid, pos)]
+        print(f"{label}: request {rid} parts at token {i} (position "
+              f"{pos}) with top-2 margin {margin:.4g} (limit {tol:.4g})")
+        assert margin <= tol, (label, rid, i, margin, tol)
+        parted += 1
+    print(f"{label}: {len(want['tokens']) - parted} of "
+          f"{len(want['tokens'])} requests served identical tokens")
+    return parted
+
+
+def shared_prefix_trace(vocab: int, n: int = 8, prefix: int = 32,
+                        seed: int = 0) -> list:
+    """``n`` requests, one every 4 steps: a common ``prefix``-token
+    prompt prefix, then 1-8 tokens of their own; budgets spread evenly
+    over 16-48, in a seeded order."""
+    g = torch.Generator().manual_seed(seed)
+    common = torch.randint(0, vocab, (prefix,), generator=g).tolist()
+    budgets = torch.linspace(16, 48, n).round().long()[
+        torch.randperm(n, generator=g)].tolist()
+    trace = []
+    for i, budget in enumerate(budgets):
+        own = int(torch.randint(1, 9, (1,), generator=g))
+        trace.append({
+            "prompt": common + torch.randint(0, vocab, (own,),
+                                             generator=g).tolist(),
+            "max_new_tokens": budget, "arrival": 4.0 * i})
+    return trace
+
+
+def paged_olmo_runs(eng, trace, rep, device, gen) -> list:
+    """Phase 3's paged runs on ``eng``'s pruned weights: (a) the prompt
+    walk, (b) prefix reuse and preemption against a contiguous chunked
+    run.  Returns their path records."""
+    from repro_torch.serve import ServeEngine
+    cfg = eng.cfg
+    same = dict(num_slots=4, max_len=256, params=eng.params,
+                head_sparsity=eng.head_sparsity, device=device)
+    t0 = time.perf_counter()
+    paged = ServeEngine(cfg, paged=True, page_len=16, **same)
+    assert_no_dense_copy(paged)
+    prep = serve(paged, trace, "paged engine (page_len 16), prompt walk")
+    path = check_counts(paged, prep, f"{cfg.name}, paged, prompt walk")
+    assert prep["tokens"] == rep["tokens"], "paged walk parts"
+    assert prep["paging"]["pages_in_use"] == 0
+    paged.kv.audit()
+    decode_step_check(paged, gen)
+    pg = prep["paging"]
+    print(f"paged walk: tokens equal the contiguous engine's | tok/s "
+          f"{prep['tok_per_s']:.1f} paged vs {rep['tok_per_s']:.1f} "
+          f"contiguous | wall per decode step "
+          f"{1e3 * prep['wall_s'] / paged.decode_steps:.2f} ms vs "
+          f"{1e3 * rep['wall_s'] / eng.decode_steps:.2f} ms | pages peak "
+          f"{pg['pages_peak']} of {pg['pages_total']} | reserved KV "
+          f"{pg['reserved_kv_bytes'] / 2**20:.1f} MiB vs contiguous "
+          f"{pg['contiguous_kv_bytes'] / 2**20:.1f} MiB "
+          f"[run {time.perf_counter() - t0:.1f}s]")
+    paths = [path]
+    del paged
+
+    t0 = time.perf_counter()
+    rtrace = shared_prefix_trace(cfg.vocab_size)
+    contig = ServeEngine(cfg, prefill_chunk=16, **same)
+    margins = record_margins(contig)
+    crep = serve(contig, rtrace, "contiguous chunked engine (16), shared "
+                                 "prefixes")
+    del contig
+    print(f"[run {time.perf_counter() - t0:.1f}s]")
+    t0 = time.perf_counter()
+    reuse = ServeEngine(cfg, paged=True, page_len=16, prefill_chunk=16,
+                        prefix_reuse=True, preempt=True,
+                        page_pool_tokens=160, **same)
+    assert_no_dense_copy(reuse)
+    rrep = serve(reuse, rtrace, "paged engine, prefix reuse + preempt, "
+                                "160-token pool")
+    paths.append(check_counts(reuse, rrep,
+                              f"{cfg.name}, paged, prefix reuse + preempt"))
+    pr, pe = rrep["prefix_reuse"], rrep["prefix_reuse"]["preempt"]
+    reuse.kv.audit()
+    assert rrep["paging"]["pages_in_use"] == len(reuse.kv.prefix) * len(
+        reuse.kv.pools) and \
+        pr["hits"] >= 1 and pe["count"] >= 1, (pr, rrep["paging"])
+    print(f"prefix reuse + preempt: {pr['hits']} hits / {pr['misses']} "
+          f"misses, {pr['hit_tokens']} tokens adopted, {pr['forks']} "
+          f"forks, {pr['evictions']} evictions | {pe['count']} preemptions,"
+          f" {pe['recomputed_tokens']} tokens recomputed | pages peak "
+          f"{rrep['paging']['pages_peak']} of "
+          f"{rrep['paging']['pages_total']} | audit clean | tok/s "
+          f"{rrep['tok_per_s']:.1f} vs contiguous chunked "
+          f"{crep['tok_per_s']:.1f} | TTFT p50 "
+          f"{rrep['first_token_s']['p50'] * 1e3:.1f} ms vs "
+          f"{crep['first_token_s']['p50'] * 1e3:.1f} ms "
+          f"[run {time.perf_counter() - t0:.1f}s]")
+    same_tokens_or_near_tie(rrep, crep, margins, cfg.d_model,
+                            "reuse + preempt vs contiguous chunked")
+    del reuse
+    torch.cuda.empty_cache()
+    return paths
+
+
 def olmo_engine_phase(cfg, device, gen, trace_len: int = 8):
     """Phase 3 (serving); returns the packed engine and its path
-    record."""
+    records."""
     from repro_torch.serve import ServeEngine, poisson_trace
     eng = ServeEngine(cfg, num_slots=4, max_len=256, sparsity=0.5, seed=0,
                       device=device)
@@ -653,8 +810,9 @@ def olmo_engine_phase(cfg, device, gen, trace_len: int = 8):
                           vocab_size=cfg.vocab_size, prompt_len=(1, 4),
                           max_new=(8, 24))
     rep = serve(eng, trace, "packed (bitmap_spmm) engine")
-    path = check_counts(eng, rep, f"{cfg.name}, prompt walk")
+    paths = [check_counts(eng, rep, f"{cfg.name}, prompt walk")]
     decode_step_check(eng, gen)
+    paths += paged_olmo_runs(eng, trace, rep, device, gen)
     profile_steps(eng)
 
     dense = ServeEngine(cfg, num_slots=4, max_len=256, params=eng.params,
@@ -665,7 +823,7 @@ def olmo_engine_phase(cfg, device, gen, trace_len: int = 8):
     print(f"tok/s packed {rep['tok_per_s']:.1f} vs dense-dispatch "
           f"{drep['tok_per_s']:.1f}")
     del dense
-    return eng, path
+    return eng, paths
 
 
 def olmo_timing_phase(eng, device, gen, m: int = 4):
@@ -827,6 +985,26 @@ def granite_engine_phase(cfg, device, gen, chunk: int = 16,
           f"steps {eng.decode_steps} vs {chunked.decode_steps} + "
           f"{crep['prefill']['calls']} prefill calls")
     del chunked
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    paged = ServeEngine(cfg, num_slots=4, max_len=256, params=eng.params,
+                        prefill_chunk=chunk, paged=True, page_len=16,
+                        device=device)
+    assert_no_dense_copy(paged)
+    prep = serve(paged, trace, f"paged engine (page_len 16), "
+                               f"prefill_chunk={chunk}")
+    paths.append(check_counts(paged, prep, f"{cfg.name}, paged, "
+                                           f"prefill_chunk={chunk}"))
+    assert prep["tokens"] == crep["tokens"], "paged chunked parts"
+    paged.kv.audit()
+    print(f"paged chunked: tokens equal the contiguous chunked run's | "
+          f"tok/s {prep['tok_per_s']:.1f} vs {crep['tok_per_s']:.1f} | "
+          f"TTFT p50 {prep['first_token_s']['p50'] * 1e3:.1f} ms | pages "
+          f"peak {prep['paging']['pages_peak']} of "
+          f"{prep['paging']['pages_total']} "
+          f"[run {time.perf_counter() - t0:.1f}s]")
+    del paged
     torch.cuda.empty_cache()
 
     dense = ServeEngine(cfg, num_slots=4, max_len=256, params=eng.params,
@@ -1246,7 +1424,7 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     reset_launches()
     t = phase("phase 2, kernels against plain", t)
 
-    eng, olmo_path = olmo_engine_phase(olmo_cfg, device, gen)
+    eng, olmo_paths = olmo_engine_phase(olmo_cfg, device, gen)
     olmo_times = olmo_timing_phase(eng, device, gen)
     del eng
     torch.cuda.empty_cache()
@@ -1274,8 +1452,7 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                 "library_ms": lib_ms, "ms_scope": scope, **extra}
 
-    k1_paths = [olmo_path["bitmap_spmm"]] + [
-        p["bitmap_spmm"] for p in granite_paths]
+    k1_paths = [p["bitmap_spmm"] for p in olmo_paths + granite_paths]
     k1g_paths = [p["bitmap_spmm_grouped"] for p in granite_paths]
     g1 = g_times["bitmap_spmm"]
     return {"kernels": [
@@ -1285,7 +1462,7 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                granite={"ms": g1[0], "plain_ms": g1[1], "bound_ms": g1[2],
                         "bound_by": g1[3], "library_ms": g1[4],
                         "ms_scope": f"one {granite_cfg.name} decode step: "
-                                    f"{k1_paths[1]['launches_per_step']} "
+                                    f"{k1_paths[-1]['launches_per_step']} "
                                     f"launches at M=4"}),
         record("bitmap_spmm_grouped", k1g_paths,
                g_times["bitmap_spmm_grouped"],

@@ -4,6 +4,8 @@ Runs on the card by default; ``--device cpu`` takes the plain PyTorch
 path (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --smoke --sparsity 0.5 --device cpu
+Paged KV with shared-prefix reuse and recompute-on-preempt:
+  ... --paged --page-len 8 --page-pool-tokens 64 --prefix-reuse --preempt
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                 max_new: tuple = (8, 24), sparsity: float = 0.0,
                 head_sparsity: float | None = None, seed: int = 0,
                 stream_weights: bool = True, temperature: float = 0.0,
-                top_k: int = 0, prefill_chunk: int = 0,
+                top_k: int = 0, paged: bool = False, page_len: int = 16,
+                page_pool_tokens: int | None = None,
+                prefill_chunk: int = 0, prefix_reuse: bool = False,
+                preempt: bool = False, max_preempts: int = 8,
                 device: str | None = None, verbose: bool = True) -> dict:
     """Continuous-batching mode: a seeded Poisson trace into the engine.
 
@@ -26,6 +31,12 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
     ``temperature`` > 0 samples every request at that temperature
     (top-``top_k`` truncated); default greedy.  ``prefill_chunk`` > 0
     ingests prompts in chunks of that many tokens (0: the prompt walk).
+    ``paged`` pages the KV cache into ``page_len``-token pages
+    (``page_pool_tokens`` bounds each pool; admissions that do not fit
+    queue); ``prefix_reuse`` and ``preempt`` (with ``paged``) share
+    matching prompt prefixes copy-on-write and preempt the youngest slot
+    when the pool runs dry (at most ``max_preempts`` times per request).
+    Tokens are the same with any of them on or off.
     ``device`` defaults to ``cuda`` and raises without a card.
     """
     eng = ServeEngine.from_arch(arch, smoke=smoke, num_slots=slots,
@@ -33,7 +44,11 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                                 head_sparsity=head_sparsity, seed=seed,
                                 stream_weights=stream_weights,
                                 bitmap_head=stream_weights, top_k=top_k,
-                                prefill_chunk=prefill_chunk, device=device)
+                                paged=paged, page_len=page_len,
+                                page_pool_tokens=page_pool_tokens,
+                                prefill_chunk=prefill_chunk,
+                                prefix_reuse=prefix_reuse, preempt=preempt,
+                                max_preempts=max_preempts, device=device)
     prompt_len = (1, min(4, max_len))
     hi = max(1, min(max_new[1], max_len - prompt_len[1] + 1))
     lo = max(1, min(max_new[0], hi))
@@ -71,6 +86,35 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                   f"(lane utilization {pf['lane_utilization']:.0%})")
         elif pf["fallback"]:
             print(f"  prefill fallback: {pf['fallback']}")
+        pg = rep["paging"]
+        if pg["paged"]:
+            print(f"  paged KV: {pg['pages_peak']} peak / "
+                  f"{pg['pages_total']} pool pages ({pg['page_len']} "
+                  f"tokens each) | reserved KV "
+                  f"{pg['reserved_kv_bytes']/1e3:.1f}kB vs contiguous "
+                  f"{pg['contiguous_kv_bytes']/1e3:.1f}kB "
+                  f"({pg['reserved_reduction']:.2f}x)")
+        elif pg["fallback"]:
+            print(f"  paging fallback: {pg['fallback']}")
+        pr = rep["prefix_reuse"]
+        if pr["enabled"]:
+            split = ""
+            if pr["hit_requests"] and pr["miss_requests"]:
+                split = (f" | TTFT p50 hit "
+                         f"{pr['ttft_hit_s']['p50'] * 1e3:.1f}ms vs miss "
+                         f"{pr['ttft_miss_s']['p50'] * 1e3:.1f}ms")
+            print(f"  prefix reuse: {pr['hits']} hits / {pr['misses']} "
+                  f"misses ({pr['hit_tokens']} tokens adopted, "
+                  f"{pr['forks']} COW forks, {pr['evictions']} "
+                  f"evictions){split}")
+        elif pr["fallback"]:
+            print(f"  prefix-reuse fallback: {pr['fallback']}")
+        pe = pr["preempt"]
+        if pe["enabled"]:
+            print(f"  preemption: {pe['count']} preempts, "
+                  f"{pe['recomputed_tokens']} tokens recomputed")
+        elif pe["fallback"]:
+            print(f"  preempt fallback: {pe['fallback']}")
     return rep
 
 
@@ -94,9 +138,31 @@ def main(argv=None):
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="default top-k truncation for sampled requests")
+    ap.add_argument("--paged", action="store_true",
+                    help="page the KV cache (fixed-size pages + per-slot "
+                         "page tables; reserved bytes scale with live "
+                         "tokens)")
+    ap.add_argument("--page-len", type=int, default=16,
+                    help="tokens per KV page (with --paged)")
+    ap.add_argument("--page-pool-tokens", type=int, default=None,
+                    help="bound each page pool to this many tokens "
+                         "(default: worst case; smaller pools queue "
+                         "admissions when pages run out)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="ingest prompts in chunks of this many tokens, one "
                          "batched call per step (0 = the prompt walk)")
+    ap.add_argument("--prefix-reuse", action="store_true",
+                    help="share matching prompt prefixes copy-on-write "
+                         "across requests (with --paged): cache hits "
+                         "skip prefill entirely")
+    ap.add_argument("--preempt", action="store_true",
+                    help="commit live pages only and reclaim by "
+                         "preempting + recomputing the youngest slot "
+                         "when the pool runs dry (with --paged)")
+    ap.add_argument("--max-preempts", type=int, default=8,
+                    help="preemption bound: a request preempted this many "
+                         "times re-admits pinned (worst-case page "
+                         "commitment, never victimized again)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -107,7 +173,11 @@ def main(argv=None):
                 head_sparsity=args.head_sparsity,
                 stream_weights=not args.dense_stack,
                 temperature=args.temperature, top_k=args.top_k,
-                prefill_chunk=args.prefill_chunk, device=args.device,
+                paged=args.paged, page_len=args.page_len,
+                page_pool_tokens=args.page_pool_tokens,
+                prefill_chunk=args.prefill_chunk,
+                prefix_reuse=args.prefix_reuse, preempt=args.preempt,
+                max_preempts=args.max_preempts, device=args.device,
                 seed=args.seed)
 
 

@@ -39,12 +39,16 @@ def build_serve_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
     not depend on scheduling; T == 0 slots stay exactly greedy.
     ``top_ks`` ((B,) ints, 0 = none) truncates each slot to its own
     top-k; without it ``top_k`` (given here) applies to every slot.
+    ``page_tables`` ({bname: (B, page_slots) int64}) serves the KV cache
+    from paged pools (``serve/paging.py``).
     """
 
     def serve_step(params, cache, tokens, pos, lm_weight=None, packed=None,
-                   seeds=None, temperature=None, top_ks=None):
+                   seeds=None, temperature=None, top_ks=None,
+                   page_tables=None):
         logits, cache = decode_step(params, cache, cfg, tokens, pos,
-                                    lm_weight=lm_weight, packed=packed)
+                                    lm_weight=lm_weight, packed=packed,
+                                    page_tables=page_tables)
         next_tok = logits.argmax(-1)
         if seeds is None or temperature is None:
             return next_tok, logits, cache
@@ -80,10 +84,12 @@ def build_prefill_step(cfg: ModelConfig) -> Callable:
     in place; every projection runs at M = B·C (``packed`` routes them
     through the kernels, as in the decode step).  No LM head: the first
     token comes from the first decode step after prefill.
+    ``page_tables`` as in the decode step.
     """
 
-    def prefill_step(params, cache, tokens, pos, lens, packed=None):
+    def prefill_step(params, cache, tokens, pos, lens, packed=None,
+                     page_tables=None):
         return prefill_hidden(params, cache, cfg, tokens, pos, lens,
-                              packed=packed)
+                              packed=packed, page_tables=page_tables)
 
     return prefill_step

@@ -68,7 +68,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (B, 1, Hq, D); caches: (B, C, Hkv, D); pos: scalar position or a
     (B,) vector of per-slot positions.  ``ring`` marks a sliding-window
-    ring buffer of size C == window.
+    ring buffer over the C lines: C == window in the contiguous layout,
+    C >= window in the paged one (page_slots × page_len rounds the
+    window up to whole pages).  The ring addresses position p at line
+    p % C, and ``window`` masks lines older than the window on its own,
+    so the padded lines past the window are never attended.
     """
     b, c, hkv, d = k_cache.shape
     hq = q.shape[2]
@@ -120,6 +124,41 @@ def slot_kv_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
         vnew = torch.where(keep, vnew, v_cache[bidx, write_slot])
     k_cache[bidx, write_slot] = knew
     v_cache[bidx, write_slot] = vnew
+
+
+def paged_kv_update(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor,
+                    page_table: torch.Tensor, write_slot: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None) -> None:
+    """Write one K/V line per batch row through a page table, in place.
+
+    k_pool/v_pool: (NP, L, Hkv, D) page pools (page 0 is the trash
+    page); k/v: (B, 1, Hkv, D); page_table: (B, S) physical page ids, 0
+    = unmapped; write_slot: (B,) logical line in [0, S·L).  Rows whose
+    page is unmapped, and rows ``valid`` masks off, resolve to page 0
+    and write the trash line: a masked row's own entry may be a page it
+    shares copy-on-write, so it must not write there even the bytes it
+    finds.  Idle rows all land on page 0, where duplicate targets are
+    harmless: nothing reads the trash page as a valid line.
+    """
+    page_len = k_pool.shape[1]
+    pi = write_slot // page_len
+    off = write_slot % page_len
+    phys = torch.gather(page_table, 1, pi[:, None])[:, 0]
+    if valid is not None:
+        phys = torch.where(valid, phys, torch.zeros_like(phys))
+    k_pool[phys, off] = k[:, 0].to(k_pool.dtype)
+    v_pool[phys, off] = v[:, 0].to(v_pool.dtype)
+
+
+def paged_gather(pool: torch.Tensor, page_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """Each slot's pages as one contiguous (B, S·L, Hkv, D) view.
+    Unmapped entries gather the trash page, whose lines the attention
+    validity mask always excludes."""
+    b, s = page_table.shape
+    lines = pool.index_select(0, page_table.reshape(-1))
+    return lines.reshape(b, s * pool.shape[1], *pool.shape[2:])
 
 
 def matmul_or_bitmap(h: torch.Tensor, w: torch.Tensor, bw,

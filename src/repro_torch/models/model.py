@@ -5,8 +5,10 @@ are a nested dict of tensors with the reference's path names, block
 leaves stacked over periods (leading dim P).  The reference's
 ``lax.scan`` over periods becomes a Python loop over the period index;
 the KV cache is updated in place.  Attention mixers with MLP, MoE (or
-no) FFNs are ported, on the decode path and chunked prefill over the
-contiguous cache; mamba and rwkv blocks raise ``NotImplementedError``.
+no) FFNs are ported, on the decode path and chunked prefill, over the
+contiguous cache or the paged one (page pools read and written through
+per-slot page tables, ``serve/paging.py``); mamba and rwkv blocks raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -182,38 +184,75 @@ def attn_capacity(blk: BlockCfg, max_len: int) -> int:
     return min(blk.window, max_len) if blk.window else max_len
 
 
+def paged_layout(cfg: ModelConfig, max_len: int,
+                 page_len: int) -> Dict[str, int]:
+    """Page-table width per attention block, ``{bname: page_slots}``:
+    ``ceil(capacity / page_len)`` entries cover one slot's capacity
+    (window-bounded for sliding-window blocks)."""
+    assert page_len > 0
+    return {f"b{i}": -(-attn_capacity(blk, max_len) // page_len)
+            for i, blk in enumerate(cfg.pattern) if blk.mixer == "attn"}
+
+
+def paged_addressing(page_slots: int, page_len: int,
+                     window: Optional[int]) -> Tuple[int, bool]:
+    """(capacity_tokens, ring) of one paged pool: the write addressing
+    the host allocator (``PagedKVCache.ensure``) and the device write
+    (``_decode_attn``) share.  Ring pools write position p at
+    ``p % capacity``, others clip to the last line."""
+    cap = page_slots * page_len
+    return cap, window is not None and cap >= window
+
+
 def _cache_shapes(cfg: ModelConfig, blk: BlockCfg, batch: int,
-                  max_len: int) -> Dict[str, tuple]:
+                  max_len: int, page_len: int = 0,
+                  pool_pages: Optional[int] = None) -> Dict[str, tuple]:
     if blk.mixer != "attn":
         raise NotImplementedError(
             f"{blk.mixer} mixer state is not ported yet")
     p = cfg.num_periods
-    c = attn_capacity(blk, max_len)
     hd = cfg.resolved_head_dim
+    if page_len > 0:
+        # a pool of pages shared by all slots: axis 1 the physical page
+        # (page 0 the trash page), axis 2 the line within it
+        slots = -(-attn_capacity(blk, max_len) // page_len)
+        n = (batch * slots + 1) if pool_pages is None else pool_pages
+        return {"k": (p, n, page_len, cfg.num_kv_heads, hd),
+                "v": (p, n, page_len, cfg.num_kv_heads, hd)}
+    c = attn_capacity(blk, max_len)
     return {"k": (p, batch, c, cfg.num_kv_heads, hd),
             "v": (p, batch, c, cfg.num_kv_heads, hd)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: torch.device | str | None = None) -> Dict:
-    """Contiguous decode cache: ``{bname: {"k", "v"}}`` of shape
-    (P, batch, capacity, Hkv, hd) in the compute type, zeroed, on
-    ``device`` (``cuda`` unless named)."""
+               device: torch.device | str | None = None,
+               page_len: int = 0,
+               pool_pages: Optional[Dict[str, int]] = None) -> Dict:
+    """Decode cache ``{bname: {"k", "v"}}`` in the compute type, zeroed,
+    on ``device`` (``cuda`` unless named): contiguous (P, batch,
+    capacity, Hkv, hd), or with ``page_len`` > 0 paged pools (P,
+    pool_pages[bname], page_len, Hkv, hd) (default: the worst case
+    ``batch × page_slots`` pages plus the trash page)."""
     device = resolve_device(device)
     dt = DTYPES[cfg.compute_dtype]
     return {f"b{i}": {k: torch.zeros(s, dtype=dt, device=device)
-                      for k, s in _cache_shapes(cfg, blk, batch,
-                                                max_len).items()}
+                      for k, s in _cache_shapes(
+                          cfg, blk, batch, max_len, page_len,
+                          (pool_pages or {}).get(f"b{i}")).items()}
             for i, blk in enumerate(cfg.pattern)}
 
 
 def _decode_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
                  blk: BlockCfg, pos: torch.Tensor,
                  packed: Optional[Dict] = None,
-                 impl: Optional[str] = None) -> torch.Tensor:
+                 impl: Optional[str] = None,
+                 page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention sub-block of one decode step.  ``cache`` holds this
-    period's (B, C, Hkv, hd) views; the new K/V line is written into
-    them in place.  ``packed`` maps wq/wk/wv/wo to ``BitmapWeight``s."""
+    period's (B, C, Hkv, hd) views — or, with ``page_table`` ((B,
+    page_slots) int64 physical page ids, 0 the trash page), its (NP, L,
+    Hkv, hd) page pools; the new K/V line is written into them in place
+    and the paged attention reads the slot's pages gathered into one
+    contiguous view.  ``packed`` maps wq/wk/wv/wo to ``BitmapWeight``s."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
@@ -231,6 +270,16 @@ def _decode_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
     posv = pos.expand(b) if pos.dim() == 0 else pos
     q = L.rope(q, posv[:, None], cfg.rope_theta)
     k = L.rope(k, posv[:, None], cfg.rope_theta)
+    if page_table is not None:
+        cap, ring = paged_addressing(page_table.shape[1],
+                                     cache["k"].shape[1], blk.window)
+        slot = (posv % cap) if ring else posv.clamp(0, cap - 1)
+        L.paged_kv_update(cache["k"], cache["v"], k, v, page_table, slot)
+        o = L.decode_attention(q, L.paged_gather(cache["k"], page_table),
+                               L.paged_gather(cache["v"], page_table), pos,
+                               window=blk.window, ring=ring)
+        return L.matmul_or_bitmap(o.reshape(b, 1, h * hd), p["wo"],
+                                  pk.get("wo"), impl)
     c = cache["k"].shape[1]
     ring = blk.window is not None and c == blk.window
     if pos.dim() == 0:
@@ -263,14 +312,18 @@ def decode_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
                   tokens: Optional[torch.Tensor], pos: torch.Tensor,
                   embeds: Optional[torch.Tensor] = None,
                   packed: Optional[Dict] = None,
-                  impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+                  impl: Optional[str] = None,
+                  page_tables: Optional[Dict] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
     """One decode step up to (and including) the final norm.
 
     tokens: (B, 1); pos: scalar shared position or a (B,) vector of
     per-slot positions.  Returns (hidden (B, 1, D), cache) — the cache is
     the one passed in, updated in place.  ``packed`` mirrors
     ``params["blocks"]`` with period-stacked ``BitmapWeight`` leaves (None
-    where a tensor is served dense).
+    where a tensor is served dense).  ``page_tables`` (``{bname: (B,
+    page_slots)}`` int64 on the cache's device) switches attention blocks
+    onto the paged pools; one table serves every period of its block.
     """
     x = embed_inputs(params, cfg, tokens, embeds)
     for per in range(cfg.num_periods):
@@ -283,7 +336,8 @@ def decode_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
                 raise NotImplementedError(
                     f"{blk.mixer} mixers are not ported yet")
             x = x + _decode_attn(bp["attn"], x, pc, cfg, blk, pos,
-                                 packed=pw.get("attn"), impl=impl)
+                                 packed=pw.get("attn"), impl=impl,
+                                 page_table=(page_tables or {}).get(bname))
             x = _ffn(bp, pw, x, cfg, blk, impl)
     return L.norm(x, params.get("final_norm"), cfg.norm), cache
 
@@ -312,11 +366,14 @@ def _ffn(bp: Dict, pw: Dict, x: torch.Tensor, cfg: ModelConfig,
 def _prefill_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
                   blk: BlockCfg, pos: torch.Tensor, lens: torch.Tensor,
                   packed: Optional[Dict] = None,
-                  impl: Optional[str] = None) -> torch.Tensor:
-    """Chunked-prefill attention over the contiguous cache: C tokens per
-    slot in one call.  x: (B, C, D); pos: (B,) chunk start positions;
-    lens: (B,) valid tokens per slot (lanes past it are padding and
-    write nothing).
+                  impl: Optional[str] = None,
+                  page_table: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Chunked-prefill attention: C tokens per slot in one call.  x: (B,
+    C, D); pos: (B,) chunk start positions; lens: (B,) valid tokens per
+    slot (lanes past it are padding: they write nothing into the
+    contiguous cache, the trash page of a paged one).  ``page_table``
+    switches to the paged pools, as in ``_decode_attn``.
 
     The q/k/v/o projections run batched over the chunk (M = B·C rows);
     the cache write and the attention scan the chunk one token at a
@@ -341,16 +398,27 @@ def _prefill_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
     posb = pos[:, None] + torch.arange(c_chunk, device=x.device)[None, :]
     q = L.rope(q, posb, cfg.rope_theta)
     k = L.rope(k, posb, cfg.rope_theta)
-    cap = cache["k"].shape[1]
-    ring = blk.window is not None and cap == blk.window
+    if page_table is not None:
+        cap, ring = paged_addressing(page_table.shape[1],
+                                     cache["k"].shape[1], blk.window)
+    else:
+        cap = cache["k"].shape[1]
+        ring = blk.window is not None and cap == blk.window
     outs = []
     for t in range(c_chunk):
         pos_t = pos + t
         slot = (pos_t % cap) if ring else pos_t.clamp(0, cap - 1)
-        L.slot_kv_update(cache["k"], cache["v"], k[:, t:t + 1],
-                         v[:, t:t + 1], slot, valid=t < lens)
-        outs.append(L.decode_attention(q[:, t:t + 1], cache["k"],
-                                       cache["v"], pos_t,
+        if page_table is not None:
+            L.paged_kv_update(cache["k"], cache["v"], k[:, t:t + 1],
+                              v[:, t:t + 1], page_table, slot,
+                              valid=t < lens)
+            k_att = L.paged_gather(cache["k"], page_table)
+            v_att = L.paged_gather(cache["v"], page_table)
+        else:
+            L.slot_kv_update(cache["k"], cache["v"], k[:, t:t + 1],
+                             v[:, t:t + 1], slot, valid=t < lens)
+            k_att, v_att = cache["k"], cache["v"]
+        outs.append(L.decode_attention(q[:, t:t + 1], k_att, v_att, pos_t,
                                        window=blk.window, ring=ring))
     o = torch.cat(outs, dim=1)                             # (B, C, Hq, hd)
     return L.matmul_or_bitmap(o.reshape(b, c_chunk, h * hd), p["wo"],
@@ -362,7 +430,9 @@ def prefill_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
                    lens: torch.Tensor,
                    embeds: Optional[torch.Tensor] = None,
                    packed: Optional[Dict] = None,
-                   impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+                   impl: Optional[str] = None,
+                   page_tables: Optional[Dict] = None
+                   ) -> Tuple[torch.Tensor, Dict]:
     """One chunked-prefill call: C prompt tokens per slot in one pass.
 
     tokens: (B, C) (or embeds (B, C, D)); pos: (B,) chunk start
@@ -371,7 +441,8 @@ def prefill_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
     the final norm, cache) — the cache passed in, its C lines per slot
     written in place.  Projections run at M = B·C; MoE FFNs fold the
     chunk into the batch so expert capacity matches the decode path.
-    Recurrent mixers (mamba/rwkv) have no chunked path and raise.
+    ``page_tables`` as in ``decode_hidden``.  Recurrent mixers
+    (mamba/rwkv) have no chunked path and raise.
     """
     x = embed_inputs(params, cfg, tokens, embeds)
     for per in range(cfg.num_periods):
@@ -384,7 +455,8 @@ def prefill_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
             pc = {k: v[per] for k, v in cache[bname].items()}
             pw = _period((packed or {}).get(bname), per) or {}
             x = x + _prefill_attn(bp["attn"], x, pc, cfg, blk, pos, lens,
-                                  packed=pw.get("attn"), impl=impl)
+                                  packed=pw.get("attn"), impl=impl,
+                                  page_table=(page_tables or {}).get(bname))
             x = _ffn(bp, pw, x, cfg, blk, impl)
     return L.norm(x, params.get("final_norm"), cfg.norm), cache
 
@@ -411,8 +483,12 @@ def decode_step(params: Dict, cache: Dict, cfg: ModelConfig,
                 tokens: Optional[torch.Tensor], pos: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None, lm_weight=None,
                 packed: Optional[Dict] = None,
-                lm_impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
-    """One decode step + LM head: (logits (B, V), cache)."""
+                lm_impl: Optional[str] = None,
+                page_tables: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step + LM head: (logits (B, V), cache); ``page_tables``
+    routes the KV cache through the paged pools (``decode_hidden``)."""
     x, cache = decode_hidden(params, cache, cfg, tokens, pos,
-                             embeds=embeds, packed=packed, impl=lm_impl)
+                             embeds=embeds, packed=packed, impl=lm_impl,
+                             page_tables=page_tables)
     return head_logits(params, cfg, x[:, 0], lm_weight, lm_impl), cache

@@ -6,7 +6,11 @@ Port of the core of ``repro/serve/engine.py``:
   freed batch slots mid-flight (``serve/request.py``,
   ``serve/scheduler.py``, copies of the reference's);
 * a slotted contiguous KV cache reused across request lifetimes
-  (``serve/cache.py``);
+  (``serve/cache.py``), or with ``paged=True`` a paged one
+  (``serve/paging.py``): fixed-size pages allocated lazily off a free
+  list and read through per-slot page tables, with shared-prefix reuse
+  (``prefix_reuse``) and recompute-on-preempt (``preempt``, bounded by
+  ``max_preempts``);
 * weights pruned once (``global_l1_prune``) and the whole decode stack
   packed once into the paper's ``BitmapWeight`` format
   (``serve/packed.py``), plus the per-tensor-pruned LM head: every
@@ -22,9 +26,9 @@ Port of the core of ``repro/serve/engine.py``:
 
 It runs on ``cuda`` unless the caller passes ``device="cpu"`` (the CPU
 takes the kernels' plain versions); with no card and no explicit CPU it
-raises.  Paging, prefix reuse, preemption, deadlines, load shedding,
-faults, telemetry and the traffic ledger are not ported yet, nor are
-recurrent (mamba / rwkv) blocks.
+raises.  Deadlines, load shedding, cancellation, faults, telemetry and
+the traffic ledger are not ported yet, nor are recurrent (mamba / rwkv)
+blocks or data-sharded page pools.
 """
 from __future__ import annotations
 
@@ -43,10 +47,11 @@ from repro_torch.launch.steps import build_prefill_step, build_serve_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, lm_head_weight
 from repro_torch.serve.cache import SlotKVCache
-from repro_torch.serve.errors import RequestRejected
+from repro_torch.serve.errors import OutOfPages, RequestRejected
 from repro_torch.serve.packed import (ROUTED_EXPERT, PackedModel,
                                       activated_scale, choose_block,
                                       pack_model)
+from repro_torch.serve.paging import PagedKVCache
 from repro_torch.serve.prefill import PrefillPlanner
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import SlotScheduler
@@ -98,6 +103,51 @@ def prefill_fallback(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
+def kv_fallbacks(cfg: ModelConfig, paged: bool, prefix_reuse: bool,
+                 preempt: bool) -> Dict[str, Optional[str]]:
+    """Why ``cfg`` falls back from paging, prefix reuse or preemption
+    (the reference's reasons, None where the knob holds or is off):
+    paging needs an attention block; reuse needs paging, and prompt
+    tokens that fix the whole state (no frames frontend, no recurrent
+    mixer); preemption needs paging and a frontend that does not fold
+    the step counter."""
+    out: Dict[str, Optional[str]] = {"paging": None, "prefix_reuse": None,
+                                     "preempt": None}
+    if paged and not any(b.mixer == "attn" for b in cfg.pattern):
+        paged = False
+        out["paging"] = (f"{cfg.name}: no attention blocks — recurrent "
+                         f"state is O(1)/slot, nothing to page")
+    recurrent = any(b.mixer != "attn" or b.ffn == "rwkv_cm"
+                    for b in cfg.pattern)
+    if prefix_reuse:
+        if not paged:
+            out["prefix_reuse"] = ("paged KV cache disabled (or fell back "
+                                   "to contiguous); no pages to share")
+        elif cfg.frontend == "frames":
+            out["prefix_reuse"] = (
+                f"{cfg.name}: frames frontend derives embeds from the step "
+                f"counter; prompt-token hashing is meaningless")
+        elif recurrent:
+            out["prefix_reuse"] = (
+                f"{cfg.name}: recurrent mixer state (mamba/rwkv) is not "
+                f"captured by KV pages; skipping ingestion would drop it")
+    if preempt:
+        if not paged:
+            out["preempt"] = ("paged KV cache disabled (or fell back to "
+                              "contiguous); no pages to reclaim")
+        elif cfg.frontend == "frames":
+            out["preempt"] = (
+                f"{cfg.name}: frames embeds fold the global step counter, "
+                f"so a preempted request's recompute would diverge from "
+                f"its first run")
+    return out
+
+
+_KV_WARNINGS = {"paging": "paged KV cache fell back to contiguous",
+                "prefix_reuse": "shared-prefix reuse fell back",
+                "preempt": "recompute-on-preempt fell back"}
+
+
 class ServeEngine:
     """Continuous-batching decode over ``num_slots`` batch slots."""
 
@@ -106,7 +156,10 @@ class ServeEngine:
                  bitmap_head: bool = True,
                  head_sparsity: Optional[float] = None,
                  stream_weights: bool = True, top_k: int = 0,
-                 prefill_chunk: int = 0,
+                 paged: bool = False, page_len: int = 16,
+                 page_pool_tokens: Optional[int] = None,
+                 prefill_chunk: int = 0, prefix_reuse: bool = False,
+                 preempt: bool = False, max_preempts: int = 8,
                  history: int = 512, params: Optional[Dict] = None,
                  device: torch.device | str | None = None):
         """``params``: the model's weights as a dict in the port's layout
@@ -120,6 +173,23 @@ class ServeEngine:
         truncation for sampled requests.  ``prefill_chunk`` > 0 ingests
         admitted prompts that many tokens at a time, one batched call per
         engine step (0: the prompt walk, one token per decode step).
+
+        ``paged``: page the attention KV cache into ``page_len``-token
+        pages read through per-slot page tables (``serve/paging.py``);
+        ``page_pool_tokens`` bounds each pool (default: the worst case,
+        still allocated lazily), and a request that does not fit queues
+        until retirements free pages.  ``prefix_reuse`` (paged): a new
+        request adopts the resident pages of a matching prompt prefix
+        copy-on-write and skips their prefill.  ``preempt`` (paged):
+        admission commits only the live ingest pages; when the pool runs
+        dry the engine evicts cached prefixes, then preempts the
+        youngest slot, whose request re-queues at the head of the line
+        and re-ingests its prompt and generated tokens on re-admission.
+        A request preempted ``max_preempts`` times re-admits pinned:
+        with its worst-case commitment, and never a victim again.
+        Tokens are the same with any of these on or off; each falls back
+        with the reference's recorded reason when it cannot hold.
+
         ``history``: retired requests kept for inspection.
         """
         self.device = resolve_device(device)
@@ -183,7 +253,25 @@ class ServeEngine:
         self.pack_s = time.perf_counter() - t0
 
         self.scheduler = SlotScheduler(num_slots, history=history)
-        self.kv = SlotKVCache(cfg, num_slots, max_len, device=self.device)
+        kvfb = kv_fallbacks(cfg, paged, prefix_reuse, preempt)
+        for key, reason in kvfb.items():
+            if reason:
+                self._warn_fallback(key, reason,
+                                    f"{_KV_WARNINGS[key]}: {reason}")
+        self.paging_fallback = kvfb["paging"]
+        self.prefix_fallback = kvfb["prefix_reuse"]
+        self.preempt_fallback = kvfb["preempt"]
+        self.page_len = page_len if paged and not self.paging_fallback \
+            else 0
+        self.prefix_reuse = prefix_reuse and not self.prefix_fallback
+        self.preempt = preempt and not self.preempt_fallback
+        self.max_preempts = max_preempts
+        self.kv = (PagedKVCache(cfg, num_slots, max_len, self.page_len,
+                                pool_tokens=page_pool_tokens,
+                                strict=not self.preempt, device=self.device)
+                   if self.page_len
+                   else SlotKVCache(cfg, num_slots, max_len,
+                                    device=self.device))
         self.top_k_default = top_k
         self._step_fn = build_serve_step(cfg, top_k=top_k)
         self.prefill_fallback = (prefill_fallback(cfg) if prefill_chunk > 0
@@ -214,7 +302,12 @@ class ServeEngine:
         self.decode_steps = 0
         self._slot_steps = 0
         self._next_rid = 0
+        # per-slot ingest = prompt + tokens generated before a
+        # preemption: a recomputed request replays its own history
         self._ingest: Dict[int, List[int]] = {}
+        self._admit_seq = np.zeros(num_slots, np.int64)  # preempt order
+        self._admit_counter = 0
+        self._recomputed = 0
         self.history = history
         self.requests: deque = deque(maxlen=max(1, history))
         self._done = 0
@@ -224,6 +317,8 @@ class ServeEngine:
         self._h_queue = RollingStat(seed=3)
         self._h_prefill = RollingStat(seed=4)
         self._h_fdec = RollingStat(seed=5)
+        self._h_ftl_hit = RollingStat(seed=6)
+        self._h_ftl_miss = RollingStat(seed=7)
 
     @classmethod
     def from_arch(cls, arch: str, smoke: bool = True, **kw) -> "ServeEngine":
@@ -262,17 +357,24 @@ class ServeEngine:
         seed and the rid); ``top_k`` truncates its sampling (None: the
         engine default; 0: none).  Raises ``RequestRejected`` when the
         request can never run: empty prompt, a budget below one token,
-        or prompt + budget beyond ``max_len``."""
+        prompt + budget beyond ``max_len``, or, paged, a worst-case page
+        need larger than the whole pool."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise RequestRejected("empty prompt")
         if max_new_tokens < 1:
             raise RequestRejected(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        if len(prompt) + max_new_tokens - 1 > self.max_len:
+        need = len(prompt) + max_new_tokens - 1
+        if need > self.max_len:
             raise RequestRejected(
                 f"prompt {len(prompt)} + {max_new_tokens} new tokens "
                 f"exceeds max_len {self.max_len}")
+        if self.page_len and not self.kv.possible(need):
+            raise RequestRejected(
+                f"prompt {len(prompt)} + {max_new_tokens} new tokens needs "
+                f"more pages than the whole pool holds "
+                f"(page_len={self.page_len}); raise page_pool_tokens")
         if any(not 0 <= t < self.cfg.vocab_size for t in prompt):
             raise RequestRejected(
                 f"prompt token outside the vocabulary "
@@ -291,12 +393,75 @@ class ServeEngine:
     # ------------------------------------------------------------- loop ----
 
     def _release_slot(self, slot: int, state: RequestState) -> Request:
+        """Tear a slot down: planner job, pages, ingest and sampling
+        lanes all released."""
+        if self.planner is not None:
+            self.planner.cancel(slot)
         req = self.scheduler.release(slot, state=state)
+        if self.page_len:
+            self.kv.retire(slot)
         self._ingest.pop(slot, None)
         self._pos[slot] = 0
         self._temp[slot] = 0.0
         self._topk[slot] = 0
         return req
+
+    def _pinned(self, slot: int) -> bool:
+        """A slot whose request used up its preemption budget: it holds
+        a worst-case commitment and is never chosen as a victim."""
+        req = self.scheduler.active.get(slot)
+        return (req is not None
+                and len(req.t_preempt) >= self.max_preempts)
+
+    def _commit_tokens(self, req: Request) -> int:
+        """Pages to commit at admission, in tokens: the worst case
+        (prompt + budget) in strict mode and for pinned requests, the
+        live ingest (prompt + tokens generated before a preemption) in
+        preemptible mode."""
+        if self.preempt and len(req.t_preempt) < self.max_preempts:
+            return len(req.prompt) + len(req.tokens)
+        return len(req.prompt) + req.max_new_tokens - 1
+
+    def _with_pages(self, fn, requester: int):
+        """Run a page-mapping call, answering ``OutOfPages`` (raised only
+        in preemptible mode, after the prefix cache is drained) by
+        preempting the youngest other slot until it succeeds."""
+        while True:
+            try:
+                return fn()
+            except OutOfPages:
+                self._reclaim(requester)
+
+    def _reclaim(self, requester: int) -> None:
+        victims = [s for s in self.scheduler.active
+                   if s != requester and not self._pinned(s)]
+        if not victims and self.kv.restore_held():
+            # confiscated headroom and no one left to preempt: hand the
+            # pages back rather than deadlock the last request
+            return
+        # unreachable by construction: submit checks possible(), a lone
+        # slot never exceeds its capped worst case, and pinned slots
+        # hold worst-case commitments
+        assert victims, "page pool exhausted with no preemptable slot"
+        self._preempt_slot(max(victims,
+                               key=lambda s: int(self._admit_seq[s])))
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Reclaim the slot's pages and re-queue its request at the head
+        of the line.  On re-admission the prompt and the tokens already
+        generated re-ingest through the normal path; sampling noise
+        depends on (seed, position) only, so the recomputed stream is
+        the undisturbed one."""
+        req = self.scheduler.active[slot]
+        req.t_preempt.append(self._wall())
+        if self.planner is not None:
+            self.planner.cancel(slot)
+        self.scheduler.requeue(slot)
+        self.kv.retire(slot)
+        self._ingest.pop(slot, None)
+        self._pos[slot] = 0
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
 
     def _retire(self, req: Request) -> None:
         self._done += 1
@@ -306,6 +471,8 @@ class ServeEngine:
         self._h_queue.add(req.queue_s)
         self._h_prefill.add(req.prefill_s)
         self._h_fdec.add(req.first_decode_s)
+        (self._h_ftl_hit if req.prefix_hit_tokens > 0
+         else self._h_ftl_miss).add(req.first_token_s)
         self.requests.append(req)
 
     def _decode(self):
@@ -313,6 +480,8 @@ class ServeEngine:
         pos = torch.from_numpy(self._pos).to(self.device)
         packed = self.packed.blocks if self.packed is not None else None
         kw = dict(lm_weight=self.lm_weight, packed=packed)
+        if self.page_len:
+            kw["page_tables"] = self.kv.tables()
         if self._use_sampling:
             kw.update(seeds=self._seeds, temperature=self._temp)
             if self._use_topk_vec:
@@ -328,7 +497,8 @@ class ServeEngine:
             torch.from_numpy(tokens).to(self.device, torch.int64),
             torch.from_numpy(pos).to(self.device, torch.int64),
             torch.from_numpy(lens).to(self.device, torch.int64),
-            packed=packed)
+            packed=packed,
+            page_tables=self.kv.tables() if self.page_len else None)
 
     def _prefill_call(self) -> None:
         """Run the planner's next batched chunk call and route results:
@@ -337,12 +507,35 @@ class ServeEngine:
         prompt token and samples the first generated one, as the walk's
         last prompt step does); slots still mid-prefill park their
         passenger decode write on their next unwritten position, which
-        the next chunk rewrites before anything reads it."""
+        the next chunk rewrites before anything reads it.
+
+        Paged, every lane's chunk pages are mapped first, oldest slot
+        first: a dry pool in preemptible mode preempts the youngest,
+        which have not mapped yet (a preempted lane still writes, into
+        the trash page).  Each advanced slot's fully written blocks are
+        published right after the call, before a later chunk's ring can
+        wrap over them."""
         tokens, pos, lens, finished = self.planner.next_call()
+        if self.page_len:
+            for slot in sorted((int(s) for s in np.nonzero(lens)[0]),
+                               key=lambda s: int(self._admit_seq[s])):
+                if slot in self.scheduler.active:
+                    self._with_pages(
+                        lambda s=slot: self.kv.ensure_range(
+                            s, int(pos[s]), int(pos[s]) + int(lens[s])),
+                        slot)
         self._prefill(tokens, pos, lens)
         self._sync()
         wall = self._wall()
+        if self.prefix_reuse:
+            for slot in np.nonzero(lens)[0]:
+                if int(slot) in self.scheduler.active:
+                    self.kv.register_prefix(
+                        int(slot), self._ingest[int(slot)],
+                        int(pos[slot]) + int(lens[slot]))
         for slot in finished:
+            if slot not in self.scheduler.active:
+                continue               # preempted while mapping
             req = self.scheduler.active[slot]
             ing = self._ingest[slot]
             self._pos[slot] = len(ing) - 1
@@ -360,7 +553,8 @@ class ServeEngine:
         the latency clock starts, so the first request's latency does not
         include building the kernel library.  Slots are all idle here;
         whatever the decode step writes at position 0 is zeroed on
-        admission."""
+        admission (paged: every table is unmapped, so it all lands on
+        the trash page)."""
         if self._warm:
             return
         nxt, _, _ = self._decode()
@@ -383,12 +577,33 @@ class ServeEngine:
         for r in self.scheduler.waiting:
             if r.arrival <= now and r.t_due is None:
                 r.t_due = self._wall()
-        for slot, req in self.scheduler.admit(now):
-            ing = list(req.prompt)
-            self.kv.reset_slot(slot)
+        # paged: the head-of-line request reserves its pages (check and
+        # commit) or queues, strictly FIFO, until retirements free them
+        fits = ((lambda r: self.kv.reserve(self._commit_tokens(r)))
+                if self.page_len else None)
+        for slot, req in self.scheduler.admit(now, fits=fits):
+            # a re-admitted request ingests its generated tokens too
+            ing = list(req.prompt) + list(req.tokens)
+            self._admit_seq[slot] = self._admit_counter
+            self._admit_counter += 1
+            shared = 0
+            if self.page_len:
+                blocks = (self.kv.match_prefix(ing)[1]
+                          if self.prefix_reuse else None)
+                shared = self.kv.admit(slot, self._commit_tokens(req),
+                                       prefix=blocks)
+            else:
+                self.kv.reset_slot(slot)
             self._ingest[slot] = ing
-            self._pos[slot] = 0
-            self._tok[slot] = ing[0]
+            if not req.t_preempt:
+                req.prefix_hit_tokens = shared
+            else:
+                # the recompute this re-admission pays (adopted blocks,
+                # often its own earlier registrations, shrink it)
+                req.recomputed_tokens += max(0, len(ing) - 1 - shared)
+                self._recomputed += max(0, len(ing) - 1 - shared)
+            self._pos[slot] = shared
+            self._tok[slot] = ing[shared]
             self._temp[slot] = req.temperature
             self._topk[slot] = (req.top_k if req.top_k is not None
                                 else self.top_k_default)
@@ -397,10 +612,12 @@ class ServeEngine:
             req.admit_step = self._steps
             if req.t_due is None:
                 req.t_due = self._wall()
-            req.t_admit = self._wall()
+            if req.t_admit is None:   # a re-admission keeps the first
+                req.t_admit = self._wall()
             if self.planner is not None:
-                self.planner.start(slot, ing)
-            if len(ing) == 1:
+                self.planner.start(slot, ing, start=shared)
+            if shared >= len(ing) - 1 and req.t_prefill_done is None:
+                # nothing to ingest: a one-token prompt or a full hit
                 req.t_prefill_done = req.t_admit
 
         # at most one prefill call per engine step: long prompts
@@ -412,12 +629,26 @@ class ServeEngine:
                       else lambda s: False)
         decoding = [s for s in self.scheduler.active if not in_prefill(s)]
         if decoding or not prefilled:
+            if self.page_len:
+                # map each decoding slot's write page, oldest first (a
+                # dry pool preempts the youngest, which have not mapped
+                # yet); mid-prefill passengers stay unmapped
+                for slot in sorted(decoding,
+                                   key=lambda s: int(self._admit_seq[s])):
+                    if slot in self.scheduler.active:
+                        self._with_pages(
+                            lambda s=slot: self.kv.ensure(
+                                s, int(self._pos[s])), slot)
+                decoding = [s for s in self.scheduler.active
+                            if not in_prefill(s)]
             self._decode_and_route(len(decoding), in_prefill)
         self._steps += 1
 
     def _decode_and_route(self, decoding: int, in_prefill) -> None:
         """The full-batch decode step (mid-prefill slots ride along as
-        passengers whose output is dropped) and its tokens' routing."""
+        passengers whose output is dropped) and its tokens' routing; a
+        filled block is published to the prefix cache, generated blocks
+        included."""
         nxt, _, _ = self._decode()
         nxt_host = nxt.cpu().numpy()
         wall = self._wall()
@@ -428,10 +659,13 @@ class ServeEngine:
             ing = self._ingest[slot]
             p = int(self._pos[slot])
             self._pos[slot] = p + 1
+            if self.prefix_reuse and (p + 1) % self.page_len == 0:
+                self.kv.register_prefix(slot, ing, p + 1)
             if p + 1 < len(ing):
-                # still consuming the prompt: teacher-force its next token
+                # still consuming the prompt (or a preempted request's
+                # history): teacher-force its next token
                 self._tok[slot] = ing[p + 1]
-                if p + 1 == len(ing) - 1:
+                if p + 1 == len(ing) - 1 and req.t_prefill_done is None:
                     req.t_prefill_done = wall     # prompt cache resident
                 continue
             t = int(nxt_host[slot])
@@ -518,11 +752,45 @@ class ServeEngine:
                         "in_flight": 0, "lane_utilization": None})
         return rep
 
+    def prefix_reuse_report(self) -> dict:
+        """Shared-prefix and preemption counters: the cache's hits,
+        evictions and forks, the hit / miss TTFT split and the
+        recompute the preemptions cost."""
+        rep = {
+            "enabled": self.prefix_reuse,
+            "fallback": self.prefix_fallback,
+            "ttft_hit_s": self._h_ftl_hit.percentiles(),
+            "ttft_miss_s": self._h_ftl_miss.percentiles(),
+            "hit_requests": self._h_ftl_hit.count,
+            "miss_requests": self._h_ftl_miss.count,
+            "preempt": {
+                "enabled": self.preempt,
+                "fallback": self.preempt_fallback,
+                "count": self.scheduler.preemptions,
+                "recomputed_tokens": self._recomputed,
+            },
+        }
+        if self.page_len:
+            rep.update(self.kv.prefix_report())
+        return rep
+
+    def paging_report(self) -> dict:
+        """Pool accounting when paged; the contiguous reservation when
+        not."""
+        if self.page_len:
+            positions = [int(self._pos[s]) for s in self.scheduler.active]
+            return {"paged": True, "fallback": None,
+                    **self.kv.report(positions)}
+        reserved = self.kv.reserved_kv_bytes()
+        return {"paged": False, "fallback": self.paging_fallback,
+                "reserved_kv_bytes": reserved,
+                "contiguous_kv_bytes": reserved,
+                "reserved_reduction": 1.0}
+
     def report(self) -> dict:
         """Serving statistics, under the reference's ``report()`` key
         names for every part this engine has."""
         wall = self._wall() if self._t0 is not None else 0.0
-        reserved = self.kv.reserved_kv_bytes()
         return {
             "requests": self._done,
             "retained_requests": len(self.requests),
@@ -536,6 +804,8 @@ class ServeEngine:
             "ttft": {"queue_s": self._h_queue.percentiles(),
                      "prefill_s": self._h_prefill.percentiles(),
                      "first_decode_s": self._h_fdec.percentiles()},
+            "prefill": self.prefill_report(),
+            "prefix_reuse": self.prefix_reuse_report(),
             "slot_occupancy": (self._slot_steps
                                / (self._steps * self.num_slots)
                                if self._steps else 0.0),
@@ -543,11 +813,7 @@ class ServeEngine:
             "head_compression": self.head_compression,
             "head_fallback": self.head_fallback,
             "weight_stream": self.weight_stream_report(),
-            "prefill": self.prefill_report(),
-            "paging": {"paged": False, "fallback": None,
-                       "reserved_kv_bytes": reserved,
-                       "contiguous_kv_bytes": reserved,
-                       "reserved_reduction": 1.0},
+            "paging": self.paging_report(),
             "cache_resets": self.kv.resets,
             "fallbacks": dict(self.fallbacks),
         }

@@ -9,15 +9,18 @@ every engine step the chunks of all mid-prefill slots ride one padded
 lanes.  The last prompt token is never prefilled: it feeds the first
 decode step, which samples the first generated token as the prompt walk
 does.  At most one prefill call runs per engine step, so decode never
-starves.  Prefix reuse, preemption (``cancel``), the audit and metrics
-registration come with paging, lifecycle and telemetry.
+starves.  A prefix hit starts the plan past its adopted positions
+(``start=``), a preemption drops it (``cancel``).  Metrics registration
+comes with telemetry.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Set, Tuple
 
 import numpy as np
+
+from repro_torch.serve.errors import AuditViolation
 
 
 @dataclasses.dataclass
@@ -50,15 +53,24 @@ class PrefillPlanner:
 
     # ------------------------------------------------------------ plan ----
 
-    def start(self, slot: int, prompt: Sequence[int]) -> bool:
+    def start(self, slot: int, prompt: Sequence[int],
+              start: int = 0) -> bool:
         """Register a freshly admitted slot; False = nothing to prefill
-        (the prompt is a single token — decode consumes it directly)."""
+        (the prompt is a single token — decode consumes it directly).
+        ``start`` skips positions already resident in the slot's cache
+        (a shared-prefix hit: adopted pages cover ``0 .. start-1``; a
+        full hit skips prefill entirely)."""
         assert slot not in self._jobs, f"slot {slot} already prefilling"
         end = len(prompt) - 1
-        if end <= 0:
+        if end - start <= 0:
             return False
-        self._jobs[slot] = PrefillJob(list(prompt), 0, end)
+        self._jobs[slot] = PrefillJob(list(prompt), start, end)
         return True
+
+    def cancel(self, slot: int) -> None:
+        """Drop a slot's remaining plan (preemption or release): the
+        engine re-ingests the whole prefix on re-admission."""
+        self._jobs.pop(slot, None)
 
     @property
     def has_work(self) -> bool:
@@ -105,6 +117,22 @@ class PrefillPlanner:
         self.calls += 1
         self.tokens_prefilled += int(lens.sum())
         return tokens, pos, lens, finished
+
+    # ------------------------------------------------------------ audit ----
+
+    def audit(self, active_slots: Set[int]) -> None:
+        """Planner invariants (raises ``AuditViolation``): every job
+        belongs to an active slot, and its cursor stays inside the
+        prompt."""
+        for slot, job in self._jobs.items():
+            if slot not in active_slots:
+                raise AuditViolation(
+                    f"prefill job for slot {slot} which is not active")
+            if not (0 <= job.next <= job.end <= len(job.prompt)):
+                raise AuditViolation(
+                    f"prefill cursor out of range for slot {slot}: "
+                    f"next={job.next} end={job.end} "
+                    f"prompt={len(job.prompt)}")
 
     # --------------------------------------------------------- reports ----
 

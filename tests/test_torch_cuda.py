@@ -114,6 +114,82 @@ def test_engine_on_card_goes_through_kernel(cuda):
 
 
 @pytest.mark.gpu
+def test_paged_decode_step_equals_contiguous_on_card(cuda):
+    """olmo-1b smoke, bf16, through the kernels: a paged decode step
+    (each slot's pages mapped in order, page 0 left as the trash page)
+    gives the contiguous step's logits bit for bit at the same
+    positions, over enough steps to fill several pages."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.packed import pack_model
+    cfg = get_smoke_config("olmo-1b")
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                         device=cuda)
+    packed = pack_model(params).blocks
+    b, max_len, plen = 4, 32, 8
+    cont = M.init_cache(cfg, b, max_len, device=cuda)
+    paged = M.init_cache(cfg, b, max_len, device=cuda, page_len=plen)
+    tables = {k: torch.arange(1, b * s + 1, device=cuda).reshape(b, s)
+              for k, s in M.paged_layout(cfg, max_len, plen).items()}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    reset_launches()
+    for p in range(20):
+        tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=g,
+                            device=cuda)
+        pos = torch.tensor([p, p + 3, max(p - 2, 0), 2 * p], device=cuda)
+        want, _ = M.decode_step(params, cont, cfg, tok, pos, packed=packed)
+        got, _ = M.decode_step(params, paged, cfg, tok, pos, packed=packed,
+                               page_tables=tables)
+        assert torch.equal(want, got), p
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitmap_spmm"] == 2 * 20 * 7 * cfg.num_layers
+
+
+@pytest.mark.gpu
+def test_copy_on_write_fork_on_card_keeps_the_source_page(cuda):
+    """A slot writing into a page it shares with the prefix cache forks
+    it first: the fork copies the page on the card, the write lands in
+    the copy, and the source page's bytes are unchanged."""
+    from repro_torch.models.layers import paged_kv_update
+    from repro_torch.serve import PagedKVCache
+    cfg = get_smoke_config("olmo-1b")
+    kv = PagedKVCache(cfg, 2, 32, 8, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    prompt = list(range(1, 10))
+    kv.reserve(9)
+    kv.admit(0, 9, prefix=[])
+    kv.ensure_range(0, 0, 8)
+    for leaf in kv.cache.values():
+        for t in leaf.values():
+            t.normal_(generator=g)
+    kv.register_prefix(0, prompt, 8)            # block 0 into the cache
+    kv.retire(0)
+    kv.reserve(9)
+    assert kv.admit(1, 9, prefix=kv.match_prefix(prompt)[1]) == 8
+    src = int(kv.pools["b0"].table[1, 0])
+    before = {b: {k: t[:, src].clone() for k, t in leaf.items()}
+              for b, leaf in kv.cache.items()}
+    kv.ensure(1, 3)                             # a write inside block 0
+    dst = int(kv.pools["b0"].table[1, 0])
+    assert dst != src and kv.forks == len(kv.pools)
+    line = torch.randn(1, 1, cfg.num_kv_heads, cfg.resolved_head_dim,
+                       generator=g, device=cuda)
+    tab = kv.tables()["b0"][1:2]
+    pool = kv.cache["b0"]
+    paged_kv_update(pool["k"][0], pool["v"][0], line, line, tab,
+                    torch.tensor([3], device=cuda))
+    torch.cuda.synchronize()
+    for b, leaf in kv.cache.items():
+        for k, t in leaf.items():
+            assert torch.equal(t[:, src], before[b][k])
+            diff = (t[:, dst] != before[b][k]).flatten(2).any(-1)
+            expect = torch.zeros_like(diff)
+            if b == "b0":
+                expect[0, 3] = True             # period 0, line 3 only
+            assert torch.equal(diff, expect), (b, k)
+    kv.audit()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k,n", [(1536, 512), (512, 1536), (64, 40)])
 @pytest.mark.parametrize("m", [1, 4, 64, 130])
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
