@@ -91,6 +91,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    TFLOP/s and path (``kernels/tile_product.plan``), K3 at M = 4 also
    on the FMA path.
 
+6. olmo-1b under faults, with the auditor and telemetry, on phase 3's
+   weights and knobs (paged, pages of 16, prefix reuse, preemption,
+   chunked prefill 16, the 160-token pool): first K1 on a bitmap with
+   one extra set bit whose slot lies past a full value budget, against
+   the plain version's clamp (dense and sparse-walk tiles, no CUDA
+   error).  Then the first 4 requests of phase 3's shared-prefix trace,
+   budgets capped at 16 (``audit=True`` copies every packed tensor to
+   the host for its CRC32 once per step, ~2.6 GB here, so the trace is
+   cut by its steps, not by its width), under ``FaultPlan.chaos(2, 24)``
+   with every telemetry artifact: at least 4 faults fired, the NaN head
+   and the bit-flipped leaf quarantined, every request DONE with no
+   error, no page leaked, tokens equal to phase 3's reuse + preempt run
+   or parting only at that contiguous run's near tie, K1 launches per
+   decode step and prefill call equal to the packed leaves' count before
+   and after each quarantine, the trace / event log / metrics snapshot
+   / traffic artifact valid.  It prints the scan's ms per step and by
+   part, the step wall against phase 3's, the ledger's bytes per step
+   against K1's executed bytes, the paper's 28 nm energy model and the
+   H100 roofline against the profiled device time; then the same trace
+   with telemetry on and off in turns, and a lifecycle pass (``max_queue``
+   refusing one submit, cancels queued and mid-decode, a deadline
+   expiring mid-flight with partial tokens; the terminal states
+   partition the history and the pool is whole).
+
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
 its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
 score pairs (K2), surviving blocks (K3) or kept values (K4).  The
@@ -106,6 +130,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -113,8 +138,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak, same source
+# H100 SXM, NVIDIA data sheet: HBM3 bytes/s and the dense bf16 peak
+from repro_torch.launch.roofline import (BF16_FLOPS_PER_S,  # noqa: E402
+                                         HBM_BYTES_PER_S)
+
 OLMO_SHAPES = (("qkvo", 2048, 2048), ("gate_up", 2048, 8192),
                ("down", 8192, 2048), ("head", 2048, 50304))
 GRANITE_SHAPES = (("q_o", 1536, 1536), ("k_v", 1536, 512),
@@ -196,7 +223,7 @@ def call_bound(x: torch.Tensor, bw):
 
 
 def bound_ms(moved: float, ops: float):
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -627,9 +654,11 @@ def prefill_call_check(eng, gen, chunk: int) -> None:
     agree(logits[None], logits["torch"], "prefill-call logits")
 
 
-def profile_steps(eng, steps: int = 6) -> None:
+def profile_steps(eng, steps: int = 6):
     """Device busy share of full-batch decode steps (torch.profiler):
-    kernel time summed per name over the steps' wall time."""
+    kernel time summed per name over the steps' wall time.  Returns the
+    device's busy ms per step, or None when the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(eng.num_slots):
         eng.submit([1 + i], max_new_tokens=steps + 4, arrival=eng._steps)
@@ -651,7 +680,7 @@ def profile_steps(eng, steps: int = 6) -> None:
     busy_us = sum(t for _, t in kernels)
     if not busy_us:
         print("profiler: no device time seen; idle share not measured")
-        return
+        return None
     spmm_us = sum(t for k, t in kernels
                   if "bitmap_spmm" in k)
     top = sorted(kernels, key=lambda kt: -kt[1])[:4]
@@ -661,6 +690,7 @@ def profile_steps(eng, steps: int = 6) -> None:
           f" idle {100 * (1 - busy_us / wall_us):.1f}%), bitmap_spmm "
           f"kernels {spmm_us / steps / 1e3:.2f} ms per step | top: "
           + ", ".join(f"{k[:40]} {t / steps / 1e3:.2f} ms" for k, t in top))
+    return busy_us / steps / 1e3
 
 
 def record_margins(eng) -> dict:
@@ -723,10 +753,12 @@ def shared_prefix_trace(vocab: int, n: int = 8, prefix: int = 32,
     return trace
 
 
-def paged_olmo_runs(eng, trace, rep, device, gen) -> list:
+def paged_olmo_runs(eng, trace, rep, device, gen):
     """Phase 3's paged runs on ``eng``'s pruned weights: (a) the prompt
     walk, (b) prefix reuse and preemption against a contiguous chunked
-    run.  Returns their path records."""
+    run.  Returns their path records, and what phase 6 reuses: the
+    shared-prefix trace, the reuse + preempt run's report and the
+    contiguous run's top-2 margins."""
     from repro_torch.serve import ServeEngine
     cfg = eng.cfg
     same = dict(num_slots=4, max_len=256, params=eng.params,
@@ -790,12 +822,13 @@ def paged_olmo_runs(eng, trace, rep, device, gen) -> list:
                             "reuse + preempt vs contiguous chunked")
     del reuse
     torch.cuda.empty_cache()
-    return paths
+    return paths, {"trace": rtrace, "reuse": rrep, "margins": margins}
 
 
 def olmo_engine_phase(cfg, device, gen, trace_len: int = 8):
-    """Phase 3 (serving); returns the packed engine and its path
-    records."""
+    """Phase 3 (serving); returns the packed engine, its path records
+    and what phase 6 reuses (``paged_olmo_runs``, with the profiled
+    device busy ms per decode step)."""
     from repro_torch.serve import ServeEngine, poisson_trace
     eng = ServeEngine(cfg, num_slots=4, max_len=256, sparsity=0.5, seed=0,
                       device=device)
@@ -812,8 +845,9 @@ def olmo_engine_phase(cfg, device, gen, trace_len: int = 8):
     rep = serve(eng, trace, "packed (bitmap_spmm) engine")
     paths = [check_counts(eng, rep, f"{cfg.name}, prompt walk")]
     decode_step_check(eng, gen)
-    paths += paged_olmo_runs(eng, trace, rep, device, gen)
-    profile_steps(eng)
+    paged_paths, shared = paged_olmo_runs(eng, trace, rep, device, gen)
+    paths += paged_paths
+    shared["busy_ms"] = profile_steps(eng)
 
     dense = ServeEngine(cfg, num_slots=4, max_len=256, params=eng.params,
                         stream_weights=False, bitmap_head=False,
@@ -823,7 +857,7 @@ def olmo_engine_phase(cfg, device, gen, trace_len: int = 8):
     print(f"tok/s packed {rep['tok_per_s']:.1f} vs dense-dispatch "
           f"{drep['tok_per_s']:.1f}")
     del dense
-    return eng, paths
+    return eng, paths, shared
 
 
 def olmo_timing_phase(eng, device, gen, m: int = 4):
@@ -1391,6 +1425,391 @@ def kernel_layer_phase(olmo_cfg, gemma_cfg, device, gen,
             for name in calls}
 
 
+# Phase 6's run: the first CHAOS_REQUESTS requests of phase 3's
+# shared-prefix trace, budgets capped at CHAOS_BUDGET (the audited run
+# copies every packed tensor to the host once per step, so the trace is
+# cut by its number of steps, never by its width), under the seeded
+# chaos plan (every kind fires while slots are busy; its bitflip hits a
+# bitmap).
+CHAOS_REQUESTS, CHAOS_BUDGET = 4, 16
+CHAOS_SEED, CHAOS_HORIZON = 2, 24
+
+
+def chaos_trace(shared) -> list:
+    """Phase 6's trace: the first ``CHAOS_REQUESTS`` requests of phase
+    3's shared-prefix trace, budgets capped at ``CHAOS_BUDGET``."""
+    return [dict(spec, max_new_tokens=min(spec["max_new_tokens"],
+                                          CHAOS_BUDGET))
+            for spec in shared["trace"][:CHAOS_REQUESTS]]
+
+
+def corrupted_bitmap_check(device, gen, k: int = 2048, n: int = 2048,
+                           rows=(1, 4, 64)) -> float:
+    """K1 on a bitmap with one extra set bit, at olmo-1b's q/k/v/o
+    shape: every tile shares one non-zero pattern, so every tile fills
+    the budget, and one clear bit of the last tile's last row is set.
+    The kernel then reads a slot past the budget, which it clamps as the
+    plain version does: the outputs must agree and the card must raise
+    no error.  Dense (sparsity 0.5) and sparse-walk (0.97) tiles; float32
+    and bf16 X.  Returns the largest |kernel - plain|."""
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import pack_bitmap
+    worst = 0.0
+    bk, bn = 128, 128
+    for sparsity in (0.5, 0.97):
+        mask = torch.rand(bk, bn, generator=gen, device=device) >= sparsity
+        mask[-1, -1] = False                    # a clear bit to set
+        w = torch.randn(k, n, generator=gen, device=device) * mask.repeat(
+            k // bk, n // bn)
+        bw = pack_bitmap(w, block=(bk, bn))
+        assert bw.budget == int(mask.sum())
+        bits = bw.packed_bits.clone()
+        bits[-1, -1, -1, -1] |= 0x80            # column bn - 1, last row
+        bad = dataclasses.replace(bw, packed_bits=bits)
+        for m in rows:
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(m, k, generator=gen, device=device).to(dt)
+                out = ops.bitmap_spmm(x, bad, impl="cuda")
+                ref = ops.bitmap_spmm(x, bad, impl="torch")
+                sync()
+                worst = max(worst, _compare(
+                    f"corrupted bitmap, sparsity {sparsity}, M={m}", out,
+                    ref, k, dt))
+        print(f"  K1 on a corrupted bitmap ({k}x{n}, block {(bk, bn)}, "
+              f"budget {bw.budget} filled by every tile, one extra bit in "
+              f"the last row of the last tile; sparsity {sparsity}): equal "
+              f"to the plain version's clamp, no CUDA error, M={list(rows)}")
+    return worst
+
+
+def scan_timer(eng) -> list:
+    """Time every integrity scan of ``eng``'s auditor (each copies every
+    packed tensor to the host for its CRC32); returns the list of
+    seconds it fills."""
+    seconds = []
+    scan = eng.auditor.integrity_scan
+
+    def timed():
+        t0 = time.perf_counter()
+        bad = scan()
+        seconds.append(time.perf_counter() - t0)
+        return bad
+
+    eng.auditor.integrity_scan = timed
+    return seconds
+
+
+def launch_recorder(eng) -> list:
+    """Record K1 launches per decode step and per prefill call of
+    ``eng``, beside the count its packed leaves give at that moment (a
+    quarantined leaf is served dense and launches nothing): a list of
+    (call, quarantined tensors, launches, expected)."""
+    from repro_torch.kernels import LAUNCHES
+    calls = []
+
+    def wrap(name, fn, prefill):
+        def recorded(*args, **kw):
+            want = per_step(eng, prefill=prefill)["bitmap_spmm"]
+            n0 = LAUNCHES["bitmap_spmm"]
+            out = fn(*args, **kw)
+            calls.append((name, len(eng.quarantined),
+                          LAUNCHES["bitmap_spmm"] - n0, want))
+            return out
+        return recorded
+
+    eng._decode = wrap("decode", eng._decode, False)
+    eng._prefill = wrap("prefill", eng._prefill, True)
+    return calls
+
+
+def scan_breakdown(eng) -> dict:
+    """One pass of the integrity scan's work over ``eng``'s packed
+    tensors, timed by part: the copies to the host, ``zlib.crc32`` over
+    them, and the finite check on the card."""
+    import zlib
+    parts = dict.fromkeys(("copy_s", "crc_s", "finite_s"), 0.0)
+    live = [bw for _, bw in eng.packed.leaves()]
+    if eng.lm_weight is not None:
+        live.append(eng.lm_weight)
+    nbytes = 0
+    for bw in live:
+        crc = 0
+        for t in (bw.packed_bits, bw.values, bw.row_start):
+            t0 = time.perf_counter()
+            host = t.contiguous().cpu().numpy()
+            t1 = time.perf_counter()
+            crc = zlib.crc32(host, crc)
+            parts["copy_s"] += t1 - t0
+            parts["crc_s"] += time.perf_counter() - t1
+            nbytes += host.nbytes
+        t0 = time.perf_counter()
+        bool(torch.isfinite(bw.values).all())
+        parts["finite_s"] += time.perf_counter() - t0
+    return {**parts, "bytes": nbytes}
+
+
+def telemetry_cost(base, trace, device, rounds: int = 2) -> None:
+    """Wall per engine step of ``trace`` served with every telemetry
+    output on against all off, no faults and no audit, in turns (off,
+    on, on, off, ...), on ``base``'s weights and phase 6's knobs: what
+    the spans, the event log and the trace cost the host step."""
+    from repro_torch.serve import ServeEngine
+    walls = {False: [], True: []}
+    with tempfile.TemporaryDirectory() as out:
+        for i in range(2 * rounds):
+            on = i % 4 in (1, 2)
+            files = ({"trace_out": f"{out}/t{i}.json",
+                      "events_out": f"{out}/e{i}.jsonl",
+                      "metrics_out": f"{out}/m{i}.json"} if on else {})
+            eng = ServeEngine(base.cfg, num_slots=4, max_len=256,
+                              params=base.params,
+                              head_sparsity=base.head_sparsity, paged=True,
+                              page_len=16, prefill_chunk=16,
+                              prefix_reuse=True, preempt=True,
+                              page_pool_tokens=160, device=device, **files)
+            eng.warmup()
+            for spec in trace:
+                eng.submit(**spec)
+            rep = eng.run()
+            eng.close()
+            walls[on].append(1e3 * rep["wall_s"] / rep["steps"])
+            del eng
+    off, on = walls[False], walls[True]
+    print(f"telemetry cost, same trace in turns (off, on, on, off): wall "
+          f"per step telemetry on {', '.join(f'{w:.2f}' for w in on)} ms "
+          f"against off {', '.join(f'{w:.2f}' for w in off)} ms (mean "
+          f"{sum(on) / len(on):.2f} against {sum(off) / len(off):.2f} ms)")
+
+
+def strict_json(path: str):
+    def refuse(token):
+        raise ValueError(f"{path}: non-strict JSON constant {token}")
+    with open(path) as f:
+        return json.load(f, parse_constant=refuse)
+
+
+def chaos_phase(base, shared, device, gen) -> dict:
+    """Phase 6: olmo-1b at full width on phase 3's weights, trace and
+    knobs (paged, pages of 16, prefix reuse, preemption, chunked prefill
+    16, the 160-token pool) under the seeded chaos plan, with the
+    auditor and every telemetry artifact.  Returns K1's path record."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.serve import (FaultPlan, ServeEngine, validate_events,
+                                   validate_trace)
+    cfg = base.cfg
+    corrupted_bitmap_check(device, gen)
+    trace = chaos_trace(shared)
+    reuse = shared["reuse"]
+    want = {"tokens": [t[:spec["max_new_tokens"]] for t, spec in
+                       zip(reuse["tokens"], trace)],
+            "prompt_lens": reuse["prompt_lens"][:len(trace)]}
+    with tempfile.TemporaryDirectory() as out:
+        files = {"trace_out": f"{out}/trace.json",
+                 "events_out": f"{out}/events.jsonl",
+                 "metrics_out": f"{out}/metrics.json",
+                 "traffic_out": f"{out}/traffic.json"}
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, num_slots=4, max_len=256, params=base.params,
+                          head_sparsity=base.head_sparsity, paged=True,
+                          page_len=16, prefill_chunk=16, prefix_reuse=True,
+                          preempt=True, page_pool_tokens=160, audit=True,
+                          faults=FaultPlan.chaos(CHAOS_SEED, CHAOS_HORIZON),
+                          device=device, **files)
+        assert_no_dense_copy(eng)
+        built = time.perf_counter() - t0
+        modeled0 = eng.traffic.report()["weight"]["sparse_bytes_per_step"]
+        executed0 = executed_bytes(eng)
+        eng.warmup()
+        scans, calls = scan_timer(eng), launch_recorder(eng)
+        rep = serve(eng, trace, "chaos + audit + telemetry engine")
+        written = eng.close()
+        assert sorted(written) == sorted(files.values()), written
+
+        # faults: each kind fired while slots were busy; both
+        # corruptions were found and quarantined
+        fs, lc = rep["lifecycle"]["faults"], rep["lifecycle"]
+        print(f"faults: {fs['fired']} of {fs['planned']} fired (seed "
+              f"{fs['seed']}) | " + "; ".join(
+                  f"step {e['step']} {e['kind']}"
+                  + (f" {e['tensor']}" if e.get("tensor") else "")
+                  + (f" {e['field']} bit {e['bit']}" if "bit" in e else "")
+                  for e in fs["log"]))
+        flips = [e for e in fs["log"] if e["kind"] == "bitflip"]
+        assert fs["fired"] >= 4 and {"nan_logits", "bitflip"} <= set(
+            fs["by_kind"]), fs
+        assert "lm_head" in lc["quarantined"], lc["quarantined"]
+        assert flips[0]["tensor"] in lc["quarantined"], lc["quarantined"]
+        print(f"quarantined: {sorted(lc['quarantined'])} | audit "
+              f"{lc['audit']}")
+        for r in eng.requests:
+            assert r.error is None, (r.rid, r.error)
+        eng.kv.flush_prefix()
+        eng.kv.audit()
+        assert all(not p.ref and not p.held for p in eng.kv.pools.values())
+        assert eng.report()["paging"]["pages_in_use"] == 0
+        same_tokens_or_near_tie(rep, want, shared["margins"], cfg.d_model,
+                                "chaos run vs phase 3's reuse + preempt")
+
+        # K1 on every projection before and after each quarantine
+        by_state = {}
+        for name, q, got, expect in calls:
+            assert got == expect, (name, q, got, expect)
+            by_state.setdefault((name, q), set()).add(got)
+        assert all(n > 0 for counts in by_state.values() for n in counts)
+        assert sum(c[2] for c in calls) == rep["launches"]["bitmap_spmm"]
+        print("K1 launches per call by quarantined tensors: " + "; ".join(
+            f"{name} with {q} quarantined: {sorted(n)}"
+            for (name, q), n in sorted(by_state.items())))
+
+        # telemetry artifacts
+        stats = validate_trace(files["trace_out"])
+        assert stats["steps"] > 0 and stats["requests"] == len(trace) \
+            and stats["agg_coverage"] > 0.5, stats
+        n_events = validate_events(files["events_out"])
+        assert n_events > 0
+        metrics = strict_json(files["metrics_out"])
+        assert metrics["schema"] == "repro.serve.metrics/v1"
+        traffic = strict_json(files["traffic_out"])
+        assert traffic["schema"] == "repro.serve.traffic/v1"
+        reason = traffic["traffic"]["crosscheck"]["reason"]
+        assert reason
+        print(f"telemetry: trace {stats['steps']} steps, "
+              f"{stats['requests']} requests, phase coverage "
+              f"{stats['agg_coverage']:.3f} | {n_events} events | metrics "
+              f"snapshot strict JSON, {len(metrics['metrics'])} metrics | "
+              f"traffic artifact written, crosscheck: {reason}")
+
+        # what the audit and the telemetry cost, and the ledger
+        steps = eng.metrics.get("step.wall_s")
+        wall_ms = 1e3 * steps.mean
+        scan_ms = 1e3 * sum(scans) / len(scans)
+        reuse_ms = 1e3 * reuse["wall_s"] / reuse["steps"]
+        scanned = sum(bw.hbm_bytes for _, bw in eng.packed.leaves())
+        print(f"integrity scan: {len(scans)} scans over {steps.count} steps,"
+              f" {scan_ms:.1f} ms each (min {1e3 * min(scans):.1f}, max "
+              f"{1e3 * max(scans):.1f}; the last copied {scanned / 1e9:.3f} "
+              f"GB of packed tensors to the host) | step wall with "
+              f"telemetry and audit {wall_ms:.1f} ms, "
+              f"{wall_ms - scan_ms * len(scans) / steps.count:.1f} ms "
+              f"without the scans, against {reuse_ms:.1f} ms per step in "
+              f"phase 3's reuse + preempt run (telemetry off)")
+        tr = rep["traffic"]
+        dec = tr["phases"]["decode"]
+        en, rl = tr["energy"], tr["roofline"]["decode"]
+        print(f"ledger: decode weight bytes per step modeled "
+              f"{modeled0 / 1e9:.4f} GB against K1's executed "
+              f"{executed0 / 1e9:.4f} GB before any fault; over the run "
+              f"{dec['weight_bytes'] / dec['steps'] / 1e9:.4f} GB per "
+              f"decode step, executed now {executed_bytes(eng) / 1e9:.4f} "
+              f"GB (quarantined tensors served dense) | KV read "
+              f"{dec['kv_read_bytes'] / 1e6:.1f} MB, written "
+              f"{dec['kv_write_bytes'] / 1e6:.1f} MB")
+        print(f"energy, the paper's 28 nm accelerator model (Table I; not "
+              f"this card): {en['pj_per_token'] / 1e6:.2f} uJ/token "
+              f"({en['pj_per_token_dense'] / 1e6:.2f} dense), "
+              f"{en['tops_per_watt']:.3f} TOPS/W "
+              f"({en['tops_per_watt_dense']:.3f} dense)")
+        busy = shared["busy_ms"]
+        print(f"roofline (H100, 3.35 TB/s): decode memory_s "
+              f"{1e3 * rl['memory_s']:.3f} ms per step ({rl['bottleneck']} "
+              f"bound) against the device busy "
+              + (f"{busy:.2f} ms" if busy is not None else "(not measured)")
+              + " per step profiled in phase 3 (contiguous walk)")
+        parts = scan_breakdown(eng)
+        print(f"integrity scan by part, one pass over the "
+              f"{parts['bytes'] / 1e9:.3f} GB still packed: copies to the "
+              f"host {1e3 * parts['copy_s']:.1f} ms "
+              f"({parts['bytes'] / parts['copy_s'] / 1e9:.2f} GB/s), "
+              f"zlib.crc32 {1e3 * parts['crc_s']:.1f} ms "
+              f"({parts['bytes'] / parts['crc_s'] / 1e9:.2f} GB/s), finite "
+              f"check on the card {1e3 * parts['finite_s']:.1f} ms")
+        print(f"[chaos run: engine {built:.1f}s, "
+              f"{time.perf_counter() - t0:.1f}s in all]")
+    record = {"path": f"{cfg.name}, paged, reuse + preempt, chaos + audit",
+              "launches": rep["launches"]["bitmap_spmm"],
+              "launches_per_step": per_step(base)["bitmap_spmm"],
+              "launches_per_prefill_call": per_step(
+                  base, prefill=True)["bitmap_spmm"],
+              "decode_steps": eng.decode_steps,
+              "prefill_calls": rep["prefill"]["calls"]}
+    assert LAUNCHES["bitmap_spmm_grouped"] == 0
+    del eng
+    torch.cuda.empty_cache()
+    return record
+
+
+def lifecycle_pass(base, shared, device) -> None:
+    """Phase 6's lifecycle pass on the same weights and knobs (default
+    pool, ``max_queue`` 4): four requests at once, a fifth refused with
+    ``ServeOverloaded``; one cancelled mid-decode, one cancelled while
+    queued, one with a deadline of 20 of phase 3's step walls and a
+    64-token budget that expires mid-flight.  The terminal states must
+    partition the history and the pool must be whole afterwards."""
+    from repro_torch.serve import (DeadlineExceeded, RequestState,
+                                   ServeEngine, ServeOverloaded)
+    t0 = time.perf_counter()
+    reuse = shared["reuse"]
+    deadline = 20e3 * reuse["wall_s"] / reuse["steps"]
+    prompts = [spec["prompt"] for spec in shared["trace"]]
+    eng = ServeEngine(base.cfg, num_slots=4, max_len=256, params=base.params,
+                      head_sparsity=base.head_sparsity, paged=True,
+                      page_len=16, prefill_chunk=16, prefix_reuse=True,
+                      preempt=True, max_queue=4, device=device)
+    eng.warmup()
+    done = [eng.submit(prompts[0], 12), None]
+    cancel_decoding = eng.submit(prompts[1], 40)
+    expire = eng.submit(prompts[2], 64, deadline_ms=deadline)
+    done[1] = eng.submit(prompts[3], 12)
+    shed = 0
+    try:
+        eng.submit(prompts[4], 8)
+    except ServeOverloaded as e:
+        shed += 1
+        print(f"lifecycle: submit refused, {e}")
+    assert shed == 1
+    eng.step()
+    queued = eng.submit(prompts[4], 8, arrival=eng._steps)
+    eng.step()
+    assert queued.state is RequestState.WAITING
+    assert eng.cancel(queued.rid)
+    while (cancel_decoding.state is RequestState.ACTIVE
+           and len(cancel_decoding.tokens) < 4):
+        eng.step()
+    assert eng.cancel(cancel_decoding.rid)
+    rep = eng.run()
+    lc = rep["lifecycle"]
+    states = {r.rid: r.state.name for r in eng.requests}
+    print(f"lifecycle: states {states} | tokens done "
+          f"{[len(r.tokens) for r in done]}, cancelled mid-decode "
+          f"{len(cancel_decoding.tokens)}, expired "
+          f"{len(expire.tokens)} of 64 (deadline {deadline:.0f} ms), "
+          f"cancelled queued {len(queued.tokens)} | counters cancelled "
+          f"{lc['cancelled']} expired {lc['expired']} shed {lc['shed']} "
+          f"wasted tokens {lc['wasted_tokens']}")
+    assert all(r.state is RequestState.DONE and len(r.tokens) == 12
+               for r in done)
+    assert cancel_decoding.state is RequestState.CANCELLED
+    assert 4 <= len(cancel_decoding.tokens) < 40
+    assert queued.state is RequestState.CANCELLED and not queued.tokens
+    assert expire.state is RequestState.EXPIRED
+    assert isinstance(expire.error, DeadlineExceeded)
+    assert 0 < len(expire.tokens) < 64, len(expire.tokens)
+    tax = lc["terminal_states"]
+    assert sum(tax.values()) == len(eng.requests) == 5, tax
+    assert tax == {"DONE": 2, "CANCELLED": 2, "EXPIRED": 1}, tax
+    assert (lc["cancelled"], lc["expired"], lc["shed"]) == (2, 1, 1), lc
+    assert lc["wasted_tokens"] == (len(cancel_decoding.tokens)
+                                   + len(expire.tokens))
+    eng.kv.flush_prefix()
+    eng.kv.audit()
+    assert all(not p.ref and not p.held for p in eng.kv.pools.values())
+    assert eng.report()["paging"]["pages_in_use"] == 0
+    print(f"lifecycle: terminal states partition the history, pool whole "
+          f"[{time.perf_counter() - t0:.1f}s]")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def phase(label: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[{label}: {now - t0:.1f}s]")
@@ -1424,9 +1843,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     reset_launches()
     t = phase("phase 2, kernels against plain", t)
 
-    eng, olmo_paths = olmo_engine_phase(olmo_cfg, device, gen)
-    olmo_times = olmo_timing_phase(eng, device, gen)
-    del eng
+    olmo, olmo_paths, shared = olmo_engine_phase(olmo_cfg, device, gen)
+    olmo_times = olmo_timing_phase(olmo, device, gen)
     torch.cuda.empty_cache()
     t = phase(f"phase 3, {olmo_cfg.name}", t)
 
@@ -1440,8 +1858,15 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                                rows=rows, timed_rows=timed_rows)
     for name, (_, err, _) in layer.items():
         worst[name] = err
-    phase("phase 5, kernels K2-K4 against their plain versions and timed",
-          t)
+    t = phase("phase 5, kernels K2-K4 against their plain versions and "
+              "timed", t)
+
+    chaos_path = chaos_phase(olmo, shared, device, gen)
+    telemetry_cost(olmo, chaos_trace(shared), device)
+    lifecycle_pass(olmo, shared, device)
+    del olmo
+    torch.cuda.empty_cache()
+    phase(f"phase 6, {olmo_cfg.name} under faults, audit and telemetry", t)
 
     def record(name, paths, times, scope, **extra):
         ms, plain_ms, b_ms, by, lib_ms = times
@@ -1452,7 +1877,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                 "library_ms": lib_ms, "ms_scope": scope, **extra}
 
-    k1_paths = [p["bitmap_spmm"] for p in olmo_paths + granite_paths]
+    k1_paths = ([p["bitmap_spmm"] for p in olmo_paths] + [chaos_path]
+                + [p["bitmap_spmm"] for p in granite_paths])
     k1g_paths = [p["bitmap_spmm_grouped"] for p in granite_paths]
     g1 = g_times["bitmap_spmm"]
     return {"kernels": [

@@ -6,12 +6,17 @@ path (the kernels' plain versions):
       --smoke --sparsity 0.5 --device cpu
 Paged KV with shared-prefix reuse and recompute-on-preempt:
   ... --paged --page-len 8 --page-pool-tokens 64 --prefix-reuse --preempt
+A seeded fault campaign under the auditor, with every artifact:
+  ... --audit --chaos-seed 3 --trace-out out/trace.json \
+      --events-out out/events.jsonl --metrics-out out/metrics.json \
+      --traffic-out out/traffic.json
 """
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.serve import ServeEngine, poisson_trace
+from repro_torch.serve import (FaultPlan, ServeEngine, ServeOverloaded,
+                               poisson_trace)
 
 
 def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
@@ -23,6 +28,14 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                 page_pool_tokens: int | None = None,
                 prefill_chunk: int = 0, prefix_reuse: bool = False,
                 preempt: bool = False, max_preempts: int = 8,
+                deadline_ms: float | None = None,
+                max_queue: int | None = None,
+                ttft_budget_ms: float | None = None, audit: bool = False,
+                faults: FaultPlan | None = None,
+                trace_out: str | None = None,
+                events_out: str | None = None,
+                metrics_out: str | None = None,
+                traffic_out: str | None = None,
                 device: str | None = None, verbose: bool = True) -> dict:
     """Continuous-batching mode: a seeded Poisson trace into the engine.
 
@@ -37,6 +50,14 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
     matching prompt prefixes copy-on-write and preempt the youngest slot
     when the pool runs dry (at most ``max_preempts`` times per request).
     Tokens are the same with any of them on or off.
+    ``deadline_ms`` expires requests that miss their latency budget;
+    ``max_queue`` / ``ttft_budget_ms`` shed arrivals under overload
+    (``ServeOverloaded``: counted, not fatal); ``audit`` runs the
+    step-level invariant auditor and the packed-tensor integrity scan;
+    ``faults`` fires a seeded ``FaultPlan``.  ``trace_out`` /
+    ``events_out`` / ``metrics_out`` / ``traffic_out`` write the Chrome
+    trace, the JSONL event log, the metrics snapshot (``.prom``:
+    Prometheus text) and the traffic ledger's artifact.
     ``device`` defaults to ``cuda`` and raises without a card.
     """
     eng = ServeEngine.from_arch(arch, smoke=smoke, num_slots=slots,
@@ -48,16 +69,30 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                                 page_pool_tokens=page_pool_tokens,
                                 prefill_chunk=prefill_chunk,
                                 prefix_reuse=prefix_reuse, preempt=preempt,
-                                max_preempts=max_preempts, device=device)
+                                max_preempts=max_preempts,
+                                deadline_ms=deadline_ms, max_queue=max_queue,
+                                ttft_budget_ms=ttft_budget_ms, audit=audit,
+                                faults=faults, trace_out=trace_out,
+                                events_out=events_out,
+                                metrics_out=metrics_out,
+                                traffic_out=traffic_out, device=device)
     prompt_len = (1, min(4, max_len))
     hi = max(1, min(max_new[1], max_len - prompt_len[1] + 1))
     lo = max(1, min(max_new[0], hi))
     trace = poisson_trace(requests, rate=rate, seed=seed,
                           vocab_size=eng.cfg.vocab_size,
                           prompt_len=prompt_len, max_new=(lo, hi))
+    shed_at_submit = 0
     for spec in trace:
-        eng.submit(**spec, temperature=temperature)
+        try:
+            eng.submit(**spec, temperature=temperature)
+        except ServeOverloaded:
+            # admission control said no: count it and keep the trace going
+            shed_at_submit += 1
     rep = eng.run()
+    for path in eng.close():
+        if verbose:
+            print(f"telemetry written: {path}")
     if verbose:
         ws = rep["weight_stream"]
         print(f"device {eng.device} | weight stream: "
@@ -68,6 +103,21 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
               f"({ws['reduction']:.2f}x)")
         if rep["head_fallback"]:
             print(f"  head fallback: {rep['head_fallback']}")
+        tr = rep["traffic"]
+        td, tp = tr["phases"]["decode"], tr["phases"]["prefill"]
+        en = tr["energy"]
+        print(f"traffic: decode {td['weight_bytes']/1e6:.2f}MB weights + "
+              f"{(td['kv_read_bytes'] + td['kv_write_bytes'])/1e6:.2f}MB "
+              f"KV over {td['steps']} steps"
+              + (f", prefill {tp['weight_bytes']/1e6:.2f}MB weights over "
+                 f"{tp['calls']} calls" if tp["calls"] else "")
+              + f" | modeled on the paper's 28 nm accelerator: "
+                f"{en['pj_per_token']/1e6:.2f}uJ/token "
+                f"({en['tops_per_watt']:.2f} TOPS/W vs dense "
+                f"{en['tops_per_watt_dense']:.2f})")
+        cx = eng.traffic._crosscheck
+        if cx is not None:
+            print(f"  crosscheck ({cx['dispatch']}): {cx['reason']}")
         if sparsity > 0:
             print(f"serving at {eng.weight_sparsity:.2%} weight sparsity "
                   f"(head compression {eng.head_compression:.2f}x)")
@@ -115,6 +165,24 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                   f"{pe['recomputed_tokens']} tokens recomputed")
         elif pe["fallback"]:
             print(f"  preempt fallback: {pe['fallback']}")
+        lc = rep["lifecycle"]
+        shed = lc["shed"] + shed_at_submit
+        if lc["cancelled"] or lc["expired"] or shed:
+            print(f"lifecycle: {lc['cancelled']} cancelled / "
+                  f"{lc['expired']} expired / {shed} shed "
+                  f"({lc['wasted_tokens']} tokens wasted)")
+        if lc["quarantined"]:
+            print(f"  quarantined tensors: "
+                  f"{', '.join(sorted(lc['quarantined']))}")
+        if "faults" in lc:
+            fs = lc["faults"]
+            print(f"fault injection: {fs['fired']}/{fs['planned']} "
+                  f"faults fired (seed {fs['seed']})")
+        if "audit" in lc:
+            au = lc["audit"]
+            print(f"audit: {au['steps_checked']} steps checked, "
+                  f"{au['integrity_scans']} integrity scans over "
+                  f"{au['checksummed_tensors']} tensors, 0 violations")
     return rep
 
 
@@ -163,10 +231,46 @@ def main(argv=None):
                     help="preemption bound: a request preempted this many "
                          "times re-admits pinned (worst-case page "
                          "commitment, never victimized again)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request latency budget from arrival-due to "
+                         "completion; misses end EXPIRED (typed "
+                         "DeadlineExceeded in request.result())")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="shed arrivals once this many requests are "
+                         "queued (typed ServeOverloaded; counted in "
+                         "report()['lifecycle'])")
+    ap.add_argument("--ttft-budget-ms", type=float, default=None,
+                    help="shed arrivals when estimated TTFT exceeds this "
+                         "budget (queue work / measured step rate)")
+    ap.add_argument("--audit", action="store_true",
+                    help="run the step-level invariant auditor + packed-"
+                         "tensor integrity scan every step (corruption "
+                         "quarantines to dense + replay)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="inject a seeded FaultPlan.chaos() fault schedule "
+                         "(page squeezes, forced preempts, eviction "
+                         "storms, NaN logits, bitflips); implies --audit")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON (step-phase + "
+                         "per-request spans; open in ui.perfetto.dev or "
+                         "chrome://tracing)")
+    ap.add_argument("--events-out", default=None,
+                    help="write the structured JSONL event log "
+                         "(lifecycle transitions, fallbacks, faults, "
+                         "audit violations)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write a metrics snapshot at exit: Prometheus "
+                         "text if the path ends in .prom, else JSON")
+    ap.add_argument("--traffic-out", default=None,
+                    help="write the memory-traffic artifact at exit "
+                         "(per-role HBM ledger, per-phase byte counters, "
+                         "energy + H100 roofline projection)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    faults = (FaultPlan.chaos(seed=args.chaos_seed)
+              if args.chaos_seed is not None else None)
     serve_trace(args.arch, smoke=args.smoke, slots=args.slots,
                 requests=args.requests, rate=args.rate,
                 max_len=args.max_len, sparsity=args.sparsity,
@@ -177,8 +281,13 @@ def main(argv=None):
                 page_pool_tokens=args.page_pool_tokens,
                 prefill_chunk=args.prefill_chunk,
                 prefix_reuse=args.prefix_reuse, preempt=args.preempt,
-                max_preempts=args.max_preempts, device=args.device,
-                seed=args.seed)
+                max_preempts=args.max_preempts,
+                deadline_ms=args.deadline_ms, max_queue=args.max_queue,
+                ttft_budget_ms=args.ttft_budget_ms,
+                audit=args.audit or faults is not None, faults=faults,
+                trace_out=args.trace_out, events_out=args.events_out,
+                metrics_out=args.metrics_out, traffic_out=args.traffic_out,
+                device=args.device, seed=args.seed)
 
 
 if __name__ == "__main__":

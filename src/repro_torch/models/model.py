@@ -467,9 +467,12 @@ def head_logits(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
     """LM head over (B, D) hidden states -> (B, V) float32 logits.
 
     ``lm_weight`` (a ``BitmapWeight``) puts the head product on the
-    bitmap-compressed ``kernels/ops.bitmap_spmm`` path."""
-    if lm_weight is None:
-        w = lm_head_weight(params, cfg).to(hidden.dtype)
+    bitmap-compressed ``kernels/ops.bitmap_spmm`` path; a dense (D, V)
+    tensor is multiplied as it is (the engine's quarantined head, pruned
+    as it was packed); None takes the params' head."""
+    if lm_weight is None or isinstance(lm_weight, torch.Tensor):
+        w = (lm_head_weight(params, cfg) if lm_weight is None
+             else lm_weight).to(hidden.dtype)
         logits = (hidden @ w).float()
     else:
         from repro_torch.kernels import ops

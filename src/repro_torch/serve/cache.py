@@ -34,6 +34,11 @@ class SlotKVCache:
                 t[:, slot].zero_()
         self.resets += 1
 
+    def register_metrics(self, reg) -> None:
+        """Expose the contiguous cache's counters as registry gauges."""
+        reg.gauge("kv.resets", lambda: self.resets)
+        reg.gauge("kv.reserved_bytes", self.reserved_kv_bytes)
+
     def reserved_kv_bytes(self) -> int:
         """Bytes reserved for attention KV lines (num_slots × capacity)."""
         return sum(t.numel() * t.element_size()

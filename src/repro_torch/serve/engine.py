@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over the packed decode stack.
 
-Port of the core of ``repro/serve/engine.py``:
+Port of ``repro/serve/engine.py``:
 
 * a request queue and a slot scheduler that admits new requests into
   freed batch slots mid-flight (``serve/request.py``,
@@ -24,15 +24,39 @@ Port of the core of ``repro/serve/engine.py``:
   (``serve/prefill.py``; token-identical to the walk); each slot decodes
   at its own position.
 
+**Request lifecycle and failure semantics**: every request ends in
+exactly one terminal state — DONE, CANCELLED (``cancel(rid)``, valid
+queued, mid-prefill, mid-decode and mid-preempt-replay), EXPIRED
+(``deadline_ms`` elapsed) or SHED (admission control under overload,
+``max_queue`` / ``ttft_budget_ms``, raises or records the typed
+``ServeOverloaded``).  ``audit=True`` runs the step-level invariant
+auditor (``serve/faults.InvariantAuditor``) and integrity-scans the
+packed tensors: a corrupted tensor (a seeded ``FaultPlan`` bitflip, a
+NaN-poisoned head, or real bit-rot) is quarantined to its dense form
+with a recorded manifest reason, and every in-flight request replays
+instead of serving garbage.  ``faults`` fires a seeded ``FaultPlan`` at
+each step start.  Every counter and histogram lives in one
+``MetricsRegistry`` (``serve/telemetry.py``) and ``report()`` is its
+rendered snapshot; ``trace_out`` / ``events_out`` / ``metrics_out``
+add step-phase spans, a Chrome trace, a JSONL event log and a metrics
+snapshot, and ``traffic_out`` the per-role HBM ledger
+(``serve/traffic.py``), all written by ``close()``.
+
 It runs on ``cuda`` unless the caller passes ``device="cpu"`` (the CPU
 takes the kernels' plain versions); with no card and no explicit CPU it
-raises.  Deadlines, load shedding, cancellation, faults, telemetry and
-the traffic ledger are not ported yet, nor are recurrent (mamba / rwkv)
-blocks or data-sharded page pools.
+raises.  Recurrent (mamba / rwkv) blocks and data-sharded page pools
+are not ported yet, nor is the traffic ledger's compiled-HLO
+cross-check (the port has no HLO).
+
+One deliberate difference from the reference: a quarantined LM head is
+served dense *as it was pruned before packing* (``head_sparsity``), not
+from the unpruned params head, so a recovered stream computes what the
+never-faulted one did.
 """
 from __future__ import annotations
 
 import math
+import os
 import time
 import warnings
 from collections import deque
@@ -47,7 +71,9 @@ from repro_torch.launch.steps import build_prefill_step, build_serve_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, lm_head_weight
 from repro_torch.serve.cache import SlotKVCache
-from repro_torch.serve.errors import OutOfPages, RequestRejected
+from repro_torch.serve.errors import (DeadlineExceeded, OutOfPages,
+                                      RequestRejected, ServeOverloaded)
+from repro_torch.serve.faults import FaultPlan, InvariantAuditor
 from repro_torch.serve.packed import (ROUTED_EXPERT, PackedModel,
                                       activated_scale, choose_block,
                                       pack_model)
@@ -55,7 +81,8 @@ from repro_torch.serve.paging import PagedKVCache
 from repro_torch.serve.prefill import PrefillPlanner
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import SlotScheduler
-from repro_torch.serve.trace import RollingStat
+from repro_torch.serve.telemetry import Clock, MetricsRegistry, Telemetry
+from repro_torch.serve.traffic import TrafficLedger
 from repro_torch.sparse.format import BitmapWeight, pack_bitmap
 from repro_torch.sparse.pruning import (global_l1_prune, per_tensor_prune,
                                         sparsity_of, tree_map)
@@ -160,7 +187,17 @@ class ServeEngine:
                  page_pool_tokens: Optional[int] = None,
                  prefill_chunk: int = 0, prefix_reuse: bool = False,
                  preempt: bool = False, max_preempts: int = 8,
-                 history: int = 512, params: Optional[Dict] = None,
+                 history: int = 512,
+                 deadline_ms: Optional[float] = None,
+                 max_queue: Optional[int] = None,
+                 ttft_budget_ms: Optional[float] = None,
+                 audit: bool = False,
+                 faults: Optional[FaultPlan] = None,
+                 trace_out: Optional[str] = None,
+                 events_out: Optional[str] = None,
+                 metrics_out: Optional[str] = None,
+                 traffic_out: Optional[str] = None,
+                 params: Optional[Dict] = None,
                  device: torch.device | str | None = None):
         """``params``: the model's weights as a dict in the port's layout
         (``repro_torch.bridge.params_from_numpy`` makes one from the JAX
@@ -191,6 +228,31 @@ class ServeEngine:
         with the reference's recorded reason when it cannot hold.
 
         ``history``: retired requests kept for inspection.
+
+        ``deadline_ms``: default per-request latency budget from the
+        moment a request's arrival comes due; a request that blows it,
+        queued or mid-flight, ends EXPIRED with ``DeadlineExceeded``
+        (``submit(deadline_ms=...)`` overrides it per request).
+        ``max_queue`` / ``ttft_budget_ms``: load shedding — a request
+        that comes due while ``max_queue`` requests already wait, or
+        while the estimated TTFT exceeds the budget, is shed with
+        ``ServeOverloaded`` (raised by ``submit`` for a request due now,
+        recorded on the request otherwise).  None: no deadline, no
+        shedding.
+
+        ``audit``: check the step's invariants after every step (slots,
+        page refcounts, request states, finite logits) and scan the
+        packed tensors' checksums; a corrupted tensor is quarantined to
+        its dense form and every in-flight request replays.  ``faults``:
+        a seeded ``serve/faults.FaultPlan`` fired at each step start.
+
+        ``trace_out`` / ``events_out`` / ``metrics_out``: telemetry
+        artifacts written by ``close()`` (Chrome trace of step phases and
+        request lifecycles, JSONL event log, metrics snapshot — JSON, or
+        Prometheus text for ``.prom``).  Any of them turns step-phase
+        spans on; with none the spans and events are ``None`` and cost
+        one ``is not None`` check per bracket.  ``traffic_out``: the
+        traffic ledger's artifact (``serve/traffic.py``).
         """
         self.device = resolve_device(device)
         missing = _unported(cfg)
@@ -199,6 +261,21 @@ class ServeEngine:
                 f"{cfg.name}: {', '.join(missing)} not ported to the "
                 f"PyTorch engine yet")
         self.cfg = cfg
+        self.metrics = MetricsRegistry()
+        self._clock = Clock()
+        self._steps = 0
+        # telemetry first: the fallback warnings below emit into the
+        # event log
+        self.telemetry: Optional[Telemetry] = None
+        if trace_out or events_out or metrics_out:
+            self.telemetry = Telemetry(self.metrics, self._clock,
+                                       trace_out=trace_out,
+                                       events_out=events_out,
+                                       metrics_out=metrics_out)
+        self.spans = (self.telemetry.spans
+                      if self.telemetry is not None else None)
+        self.events = (self.telemetry.events
+                       if self.telemetry is not None else None)
         self.num_slots = num_slots
         self.max_len = max_len
         self.sparsity = sparsity
@@ -249,6 +326,8 @@ class ServeEngine:
             self.fallbacks["head"] = self.head_fallback
         self.head_compression = (self.lm_weight.compression
                                  if self.lm_weight is not None else 1.0)
+        # the dense head a quarantined packed head is served from
+        self._head_dense: Optional[torch.Tensor] = None
         self._sync()
         self.pack_s = time.perf_counter() - t0
 
@@ -265,7 +344,6 @@ class ServeEngine:
             else 0
         self.prefix_reuse = prefix_reuse and not self.prefix_fallback
         self.preempt = preempt and not self.preempt_fallback
-        self.max_preempts = max_preempts
         self.kv = (PagedKVCache(cfg, num_slots, max_len, self.page_len,
                                 pool_tokens=page_pool_tokens,
                                 strict=not self.preempt, device=self.device)
@@ -286,7 +364,13 @@ class ServeEngine:
             PrefillPlanner(num_slots, prefill_chunk) if prefill_chunk
             else None)
         self._prefill_fn = build_prefill_step(cfg)
-        self.prefill_steps = 0
+        # engine-owned accounting lives in the metrics registry, under
+        # the reference's names; the report sections render views of it
+        m = self.metrics
+        self._c_prefill_steps = m.counter(
+            "steps.prefill", help="engine steps that ran a prefill call")
+        self._c_decode_steps = m.counter(
+            "steps.decode", help="engine steps that ran a decode call")
 
         self._tok = np.zeros(num_slots, np.int64)
         self._pos = np.zeros(num_slots, np.int64)
@@ -297,28 +381,86 @@ class ServeEngine:
         self._use_topk_vec = False
         self._seed = seed
         self._warm = False
-        self._t0: Optional[float] = None
-        self._steps = 0
-        self.decode_steps = 0
-        self._slot_steps = 0
+        self._c_slot_steps = m.counter(
+            "steps.active_slots",
+            help="decoding slot-steps (occupancy numerator)")
         self._next_rid = 0
         # per-slot ingest = prompt + tokens generated before a
         # preemption: a recomputed request replays its own history
         self._ingest: Dict[int, List[int]] = {}
         self._admit_seq = np.zeros(num_slots, np.int64)  # preempt order
         self._admit_counter = 0
-        self._recomputed = 0
+        self._c_recomputed = m.counter(
+            "tokens.recomputed",
+            help="positions re-ingested after preemption")
         self.history = history
         self.requests: deque = deque(maxlen=max(1, history))
-        self._done = 0
-        self._gen_tokens = 0
-        self._h_lat = RollingStat(seed=1)
-        self._h_ftl = RollingStat(seed=2)
-        self._h_queue = RollingStat(seed=3)
-        self._h_prefill = RollingStat(seed=4)
-        self._h_fdec = RollingStat(seed=5)
-        self._h_ftl_hit = RollingStat(seed=6)
-        self._h_ftl_miss = RollingStat(seed=7)
+        self._c_done = m.counter("requests.done",
+                                 help="requests retired DONE")
+        self._c_gen_tokens = m.counter("tokens.generated",
+                                       help="tokens delivered by DONE "
+                                            "requests")
+        self._h_lat = m.histogram("request.latency_s", seed=1,
+                                  help="arrival-due -> last token")
+        self._h_ftl = m.histogram("request.first_token_s", seed=2,
+                                  help="arrival-due -> first token")
+        self._h_queue = m.histogram("request.queue_s", seed=3,
+                                    help="arrival-due -> slot granted")
+        self._h_prefill = m.histogram("request.prefill_s", seed=4,
+                                      help="slot granted -> prompt "
+                                           "cache resident")
+        self._h_fdec = m.histogram("request.first_decode_s", seed=5,
+                                   help="prompt resident -> first token")
+        self._h_ftl_hit = m.histogram("request.ttft_hit_s", seed=6,
+                                      help="TTFT, prefix-cache hits")
+        self._h_ftl_miss = m.histogram("request.ttft_miss_s", seed=7,
+                                       help="TTFT, prefix-cache misses")
+
+        # ---- lifecycle: deadlines, shedding, bounded preemption, fault
+        # injection and invariant auditing ----
+        self.deadline_ms = deadline_ms
+        self.max_queue = max_queue
+        self.ttft_budget_ms = ttft_budget_ms
+        self.max_preempts = max_preempts
+        self._has_deadlines = deadline_ms is not None
+        self._c_cancelled = m.counter("requests.cancelled")
+        self._c_expired = m.counter("requests.expired")
+        self._c_shed = m.counter("requests.shed")
+        self._c_forced_preempts = m.counter(
+            "preempts.forced", help="fault-injected forced preemptions")
+        self._c_wasted = m.counter(
+            "tokens.wasted", help="tokens generated by aborted requests")
+        self._step_wall_ema: Optional[float] = None  # TTFT estimator
+        self.quarantined: Dict[str, str] = {}
+        self.faults = faults
+        self.audit = audit
+        # checksums are taken here, before any fault can fire: the
+        # integrity scans compare against this pristine state
+        self.auditor: Optional[InvariantAuditor] = (
+            InvariantAuditor(self) if audit else None)
+
+        # ---- traffic ledger: always on (host integer counters in the
+        # registry); ``traffic_out`` also writes its artifact at close()
+        self.traffic_out = traffic_out
+        self._traffic_written = False
+        self.traffic = TrafficLedger(self)
+
+        self.scheduler.register_metrics(m)
+        self.kv.register_metrics(m)
+        self.traffic.register_metrics(m)
+        if self.planner is not None:
+            self.planner.register_metrics(m)
+        if self.packed is not None:
+            self.packed.register_metrics(m)
+        if self.faults is not None:
+            self.faults.register_metrics(m)
+        if self.auditor is not None:
+            self.auditor.register_metrics(m)
+        m.gauge("steps.total", lambda: self._steps,
+                help="engine steps taken (includes idle fast-forward)")
+        m.gauge("queue.due_depth", self._due_depth,
+                help="waiting requests whose arrival has come due")
+        self._register_report_views()
 
     @classmethod
     def from_arch(cls, arch: str, smoke: bool = True, **kw) -> "ServeEngine":
@@ -335,30 +477,114 @@ class ServeEngine:
         self.fallbacks[key] = reason
         if (key, reason) not in self._warned:
             self._warned.add((key, reason))
+            self._emit("fallback", key=key, reason=reason)
             warnings.warn(message, stacklevel=3)
 
-    # ------------------------------------------------------------ clock ----
+    @property
+    def decode_steps(self) -> int:
+        """Engine steps that ran a decode call (registry counter)."""
+        return self._c_decode_steps.value
 
-    def _start_clock(self) -> None:
-        if self._t0 is None:
-            self._t0 = time.perf_counter()
+    @property
+    def prefill_steps(self) -> int:
+        """Engine steps that ran a prefill call (registry counter)."""
+        return self._c_prefill_steps.value
 
-    def _wall(self) -> float:
-        return time.perf_counter() - self._t0
+    # --------------------------------------------------------- telemetry ----
+
+    @property
+    def _forced_preempts(self) -> int:
+        """Fault-injected forced-preemption count (registry counter)."""
+        return self._c_forced_preempts.value
+
+    def _emit(self, kind: str, rid: Optional[int] = None,
+              **fields) -> None:
+        """Append to the event log (a no-op, one ``is None`` check, with
+        telemetry off)."""
+        if self.events is not None:
+            self.events.emit(kind, t=self._clock.now_or_zero(),
+                             step=self._steps, rid=rid, **fields)
+
+    def close(self) -> List[str]:
+        """Write the configured artifacts (trace, events, metrics,
+        traffic); idempotent, returns the paths written."""
+        written: List[str] = []
+        if self.traffic_out and not self._traffic_written:
+            self._traffic_written = True
+            d = os.path.dirname(self.traffic_out)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            self.traffic.write(self.traffic_out)
+            written.append(self.traffic_out)
+        if self.telemetry is not None:
+            written.extend(self.telemetry.close())
+        return written
+
+    def _trace_counter(self, name: str, values: Dict[str, int]) -> None:
+        """One Chrome-trace counter sample (the per-phase HBM byte
+        tracks); a no-op without ``trace_out``."""
+        if self.telemetry is None or self.telemetry.trace is None:
+            return
+        self.telemetry.trace.counter(name, self._clock.now_or_zero(),
+                                     values)
+
+    def _register_report_views(self) -> None:
+        """``report()``'s top-level fields and sections as registry
+        views, in the reference's key order."""
+        m = self.metrics
+        m.view("requests", lambda: self._c_done.value)
+        m.view("retained_requests", lambda: len(self.requests))
+        m.view("generated_tokens", lambda: self._c_gen_tokens.value)
+        m.view("steps", lambda: self._steps)
+        m.view("wall_s", lambda: (self._clock.now()
+                                  if self._clock.started else 0.0))
+
+        def tok_per_s():
+            dt = self._clock.now() if self._clock.started else 0.0
+            gen = self._c_gen_tokens.value
+            return gen / dt if dt > 0 else float("nan")
+
+        m.view("tok_per_s", tok_per_s)
+        m.view("latency_s", self._h_lat.percentiles)
+        m.view("first_token_s", self._h_ftl.percentiles)
+        m.view("ttft", lambda: {
+            "queue_s": self._h_queue.percentiles(),
+            "prefill_s": self._h_prefill.percentiles(),
+            "first_decode_s": self._h_fdec.percentiles(),
+        })
+        m.view("prefill", self.prefill_report)
+        m.view("prefix_reuse", self.prefix_reuse_report)
+        m.view("slot_occupancy",
+               lambda: (self._c_slot_steps.value
+                        / (self._steps * self.num_slots)
+                        if self._steps else 0.0))
+        m.view("weight_sparsity", lambda: self.weight_sparsity)
+        m.view("head_compression", lambda: self.head_compression)
+        m.view("head_fallback", lambda: self.head_fallback)
+        m.view("weight_stream", self.weight_stream_report)
+        m.view("traffic", self.traffic.report)
+        m.view("paging", self.paging_report)
+        m.view("cache_resets", lambda: self.kv.resets)
+        m.view("lifecycle", self.lifecycle_report)
+        m.view("fallbacks", lambda: dict(self.fallbacks))
 
     # ------------------------------------------------------------ intake ----
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
                arrival: float = 0.0, temperature: float = 0.0,
                seed: Optional[int] = None,
-               top_k: Optional[int] = None) -> Request:
+               top_k: Optional[int] = None,
+               deadline_ms: Optional[float] = None) -> Request:
         """Queue one request.  ``temperature`` > 0 samples its tokens
         from its own stream, seeded by ``seed`` (default: from the engine
         seed and the rid); ``top_k`` truncates its sampling (None: the
-        engine default; 0: none).  Raises ``RequestRejected`` when the
+        engine default; 0: none); ``deadline_ms`` overrides the engine's
+        latency budget for it.  Raises ``RequestRejected`` when the
         request can never run: empty prompt, a budget below one token,
         prompt + budget beyond ``max_len``, or, paged, a worst-case page
-        need larger than the whole pool."""
+        need larger than the whole pool.  Raises ``ServeOverloaded`` when
+        the request is due now and admission control is shedding; a
+        future arrival is checked again when it comes due."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise RequestRejected("empty prompt")
@@ -379,22 +605,55 @@ class ServeEngine:
             raise RequestRejected(
                 f"prompt token outside the vocabulary "
                 f"[0, {self.cfg.vocab_size})")
+        if arrival <= self._steps:
+            reason = self._overload_reason()
+            if reason is not None:
+                self._c_shed.inc()
+                self._emit("shed", reason=reason, at="submit")
+                raise ServeOverloaded(
+                    reason, queue_depth=self._due_depth(),
+                    est_ttft_s=self.estimated_ttft_s())
         req = Request(rid=self._next_rid, prompt=prompt,
                       max_new_tokens=max_new_tokens, arrival=arrival,
-                      temperature=temperature, seed=seed, top_k=top_k)
+                      temperature=temperature, seed=seed, top_k=top_k,
+                      deadline_ms=(deadline_ms if deadline_ms is not None
+                                   else self.deadline_ms))
+        if req.deadline_ms is not None:
+            self._has_deadlines = True
         if temperature > 0:
             self._use_sampling = True
         if top_k is not None and top_k != self.top_k_default:
             self._use_topk_vec = True
         self._next_rid += 1
         self.scheduler.submit(req)
+        self._emit("submit", rid=req.rid, prompt_tokens=len(prompt),
+                   max_new_tokens=max_new_tokens, arrival=arrival)
         return req
 
-    # ------------------------------------------------------------- loop ----
+    # --------------------------------------------------------- lifecycle ----
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request by rid at any stage: queued (a preempted
+        request waiting to replay included), mid-prefill or mid-decode.
+        Its pages and prefix-cache references are released; its partial
+        tokens stay on the request (CANCELLED, no error).  Returns False
+        for an unknown or already finished rid."""
+        for r in self.scheduler.waiting:
+            if r.rid == rid:
+                self.scheduler.cancel_waiting(r)
+                r.transition(RequestState.CANCELLED)
+                self._abort(r, RequestState.CANCELLED)
+                return True
+        for slot, r in list(self.scheduler.active.items()):
+            if r.rid == rid:
+                req = self._release_slot(slot, RequestState.CANCELLED)
+                self._abort(req, RequestState.CANCELLED)
+                return True
+        return False
 
     def _release_slot(self, slot: int, state: RequestState) -> Request:
-        """Tear a slot down: planner job, pages, ingest and sampling
-        lanes all released."""
+        """Tear a slot down into any terminal state: planner job, pages,
+        ingest and sampling lanes all released."""
         if self.planner is not None:
             self.planner.cancel(slot)
         req = self.scheduler.release(slot, state=state)
@@ -406,12 +665,77 @@ class ServeEngine:
         self._topk[slot] = 0
         return req
 
+    def _abort(self, req: Request, state: RequestState,
+               error: Optional[Exception] = None) -> None:
+        """Terminal bookkeeping for the outcomes other than DONE."""
+        req.error = error
+        req.done_step = self._steps
+        if self._clock.started:
+            req.t_done = self._wall()
+        if state is RequestState.CANCELLED:
+            self._c_cancelled.inc()
+        elif state is RequestState.EXPIRED:
+            self._c_expired.inc()
+        elif state is RequestState.SHED:
+            self._c_shed.inc()
+        self._c_wasted.inc(len(req.tokens))
+        self.requests.append(req)
+        self._emit(state.name.lower(), rid=req.rid,
+                   tokens=len(req.tokens),
+                   reason=str(error) if error is not None else None)
+        if self.telemetry is not None:
+            self.telemetry.request_done(req)
+
+    def _due_depth(self) -> int:
+        """Waiting requests whose arrival has come due."""
+        return sum(1 for r in self.scheduler.waiting
+                   if r.arrival <= self._steps)
+
+    def estimated_ttft_s(self) -> Optional[float]:
+        """Queue-drain TTFT estimate for a request arriving now: the
+        outstanding tokens (due queue and live remainders) spread over
+        the slots, at the per-step wall's moving average.  None until a
+        step has been timed."""
+        if self._step_wall_ema is None:
+            return None
+        work = 0
+        for r in self.scheduler.waiting:
+            if r.arrival <= self._steps:
+                work += len(r.prompt) + r.max_new_tokens - 1
+        for slot, r in self.scheduler.active.items():
+            total = len(r.prompt) + r.max_new_tokens - 1
+            work += max(0, total - int(self._pos[slot]))
+        return (work / self.num_slots) * self._step_wall_ema
+
+    def _overload_reason(self, exclude_self: bool = False) -> Optional[str]:
+        """Why admission control refuses a request due now, or None.
+        ``exclude_self``: the step-start sweep judges a request already
+        in the queue, which must not count toward its own depth."""
+        depth = self._due_depth() - (1 if exclude_self else 0)
+        if self.max_queue is not None and depth >= self.max_queue:
+            return f"queue depth {depth} >= max_queue {self.max_queue}"
+        if self.ttft_budget_ms is not None:
+            est = self.estimated_ttft_s()
+            if est is not None and est * 1e3 > self.ttft_budget_ms:
+                return (f"estimated TTFT {est * 1e3:.1f}ms > budget "
+                        f"{self.ttft_budget_ms:.1f}ms")
+        return None
+
+    def _deadline_passed(self, req: Request, wall: float) -> bool:
+        return (req.deadline_ms is not None and req.t_due is not None
+                and (wall - req.t_due) * 1e3 > req.deadline_ms)
+
     def _pinned(self, slot: int) -> bool:
         """A slot whose request used up its preemption budget: it holds
         a worst-case commitment and is never chosen as a victim."""
         req = self.scheduler.active.get(slot)
         return (req is not None
                 and len(req.t_preempt) >= self.max_preempts)
+
+    # ------------------------------------------------------------- loop ----
+
+    def _wall(self) -> float:
+        return self._clock.now()
 
     def _commit_tokens(self, req: Request) -> int:
         """Pages to commit at admission, in tokens: the worst case
@@ -454,32 +778,98 @@ class ServeEngine:
         the undisturbed one."""
         req = self.scheduler.active[slot]
         req.t_preempt.append(self._wall())
+        self._emit("preempt", rid=req.rid, slot=slot,
+                   tokens=len(req.tokens))
         if self.planner is not None:
             self.planner.cancel(slot)
         self.scheduler.requeue(slot)
-        self.kv.retire(slot)
+        if self.page_len:
+            self.kv.retire(slot)
         self._ingest.pop(slot, None)
         self._pos[slot] = 0
         self._temp[slot] = 0.0
         self._topk[slot] = 0
 
     def _retire(self, req: Request) -> None:
-        self._done += 1
-        self._gen_tokens += len(req.tokens)
-        self._h_lat.add(req.latency_s)
-        self._h_ftl.add(req.first_token_s)
-        self._h_queue.add(req.queue_s)
-        self._h_prefill.add(req.prefill_s)
-        self._h_fdec.add(req.first_decode_s)
+        """Fold a finished request into the aggregates and the retained
+        history."""
+        self._c_done.inc()
+        self._c_gen_tokens.inc(len(req.tokens))
+        self._h_lat.observe(req.latency_s)
+        self._h_ftl.observe(req.first_token_s)
+        self._h_queue.observe(req.queue_s)
+        self._h_prefill.observe(req.prefill_s)
+        self._h_fdec.observe(req.first_decode_s)
         (self._h_ftl_hit if req.prefix_hit_tokens > 0
-         else self._h_ftl_miss).add(req.first_token_s)
+         else self._h_ftl_miss).observe(req.first_token_s)
         self.requests.append(req)
+        self._emit("done", rid=req.rid, tokens=len(req.tokens),
+                   latency_s=req.latency_s)
+        if self.telemetry is not None:
+            self.telemetry.request_done(req)
+
+    def _recover_corruption(self, logits: Optional[torch.Tensor],
+                            decoding: List[int]) -> bool:
+        """Integrity scan, quarantine and replay (the ``audit=True``
+        corruption path).  Returns True when corruption was found: the
+        caller then discards the step's results.
+
+        Every packed tensor (stack leaves and LM head) is checksummed
+        against its pack-time CRC and checked for non-finite values.
+        Each corrupted tensor is quarantined: a stack leaf becomes None
+        (``matmul_or_bitmap`` multiplies by the dense params tensor,
+        which global pruning already left equal to the pack), the head
+        is served from the params' head pruned as it was packed; the
+        reason lands in the manifest.  Then the prefix cache is flushed
+        (its pages may hold KV lines written through the corrupt path)
+        and every active slot is preempted, so all in-flight requests
+        replay through the clean path.  Non-finite logits with no
+        corrupted tensor to blame raise ``AuditViolation``: that is a
+        bug, not a recoverable fault."""
+        bad = self.auditor.integrity_scan()
+        if not bad:
+            if logits is not None:
+                self.auditor.check_logits(logits.float().cpu().numpy(),
+                                          decoding)
+            return False
+        for path in bad:
+            reason = ("quarantined: integrity checksum mismatch "
+                      "(served dense from pristine params)")
+            if path == "lm_head":
+                self.lm_weight = None
+                self._head_dense = per_tensor_prune(
+                    lm_head_weight(self.params, self.cfg),
+                    self.head_sparsity)
+                self.head_fallback = reason
+                self.head_compression = 1.0
+                self._warn_fallback(
+                    "head", reason,
+                    "bitmap LM head quarantined to dense: corrupted "
+                    "value/bitmap payload detected")
+            else:
+                self.packed.quarantine(path, reason)
+                self._warn_fallback(
+                    f"quarantine:{path}", reason,
+                    f"packed tensor {path} quarantined to dense: "
+                    f"corrupted value/bitmap payload detected")
+            self.quarantined[path] = reason
+            self.auditor.drop(path)
+            self._emit("quarantine", tensor=path, reason=reason)
+        # a quarantine flips manifest entries to dense: the ledger's
+        # cached role rows are stale now
+        self.traffic.invalidate()
+        if self.page_len:
+            self.kv.flush_prefix()
+        for slot in list(self.scheduler.active):
+            self._preempt_slot(slot)
+        return True
 
     def _decode(self):
         tok = torch.from_numpy(self._tok[:, None]).to(self.device)
         pos = torch.from_numpy(self._pos).to(self.device)
         packed = self.packed.blocks if self.packed is not None else None
-        kw = dict(lm_weight=self.lm_weight, packed=packed)
+        kw = dict(lm_weight=(self.lm_weight if self.lm_weight is not None
+                             else self._head_dense), packed=packed)
         if self.page_len:
             kw["page_tables"] = self.kv.tables()
         if self._use_sampling:
@@ -525,6 +915,8 @@ class ServeEngine:
                             s, int(pos[s]), int(pos[s]) + int(lens[s])),
                         slot)
         self._prefill(tokens, pos, lens)
+        self._trace_counter("hbm.prefill",
+                            self.traffic.on_prefill(pos, lens))
         self._sync()
         wall = self._wall()
         if self.prefix_reuse:
@@ -542,10 +934,11 @@ class ServeEngine:
             self._tok[slot] = ing[-1]
             if req.t_prefill_done is None:
                 req.t_prefill_done = wall
+                self._emit("prefill_done", rid=req.rid, slot=slot)
         for slot in np.nonzero(lens)[0]:
             if self.planner.in_prefill(int(slot)):
                 self._pos[slot] = self.planner.next_pos(int(slot))
-        self.prefill_steps += 1
+        self._c_prefill_steps.inc()
 
     def warmup(self) -> None:
         """Run one throwaway decode step (and, with chunked prefill, one
@@ -567,16 +960,61 @@ class ServeEngine:
         self._warm = True
 
     def step(self) -> None:
-        """One engine step: admit due requests into free slots, run at
-        most one chunked-prefill call, then the full-batch decode step
-        and its tokens' routing (skipped when every active slot is
-        mid-prefill)."""
+        """One engine step: fire the fault plan, expire and shed due
+        requests, admit into free slots, run at most one chunked-prefill
+        call, then the full-batch decode step and its tokens' routing
+        (skipped when every active slot is mid-prefill), the mid-flight
+        deadline sweep and the audit.
+
+        With telemetry on, every host-side stretch of the step sits in
+        exactly one phase span (``telemetry.PHASES``): schedule →
+        [prefill] → [page_ensure → decode → host_sync → sample] →
+        [deadline_sweep] → [audit].  The decode phase ends when the step
+        is enqueued; device time surfaces in ``host_sync``, the copy of
+        the step's tokens to the host.  Telemetry off: ``sp is None``
+        and every bracket is a dead branch."""
         self.warmup()
-        self._start_clock()
+        self._clock.start()
+        sp = self.spans
+        t_begin = time.perf_counter()
+        if sp is not None:
+            sp.step_begin(self._steps, t_begin)
+            sp.begin("schedule")
         now = float(self._steps)
-        for r in self.scheduler.waiting:
+        if self.faults is not None:
+            n_log = len(self.faults.log)
+            self.faults.fire(self, self._steps)
+            if self.events is not None:
+                for entry in list(self.faults.log)[n_log:]:
+                    self._emit("fault", kind_detail=entry.get("kind"),
+                               fired=bool(entry.get("fired")),
+                               tensor=entry.get("tensor"))
+        shedding = (self.max_queue is not None
+                    or self.ttft_budget_ms is not None)
+        for r in list(self.scheduler.waiting):
             if r.arrival <= now and r.t_due is None:
                 r.t_due = self._wall()
+                if shedding:
+                    reason = self._overload_reason(exclude_self=True)
+                    if reason is not None:
+                        # came due while overloaded: shed with the typed
+                        # error recorded (submit raised for requests due
+                        # when they were submitted)
+                        self.scheduler.cancel_waiting(r)
+                        r.transition(RequestState.SHED)
+                        self._abort(r, RequestState.SHED,
+                                    error=ServeOverloaded(
+                                        reason,
+                                        queue_depth=self._due_depth()))
+                        continue
+            if self._has_deadlines and self._deadline_passed(
+                    r, self._wall()):
+                self.scheduler.cancel_waiting(r)
+                r.transition(RequestState.EXPIRED)
+                self._abort(r, RequestState.EXPIRED,
+                            error=DeadlineExceeded(
+                                f"rid {r.rid}: queued past its "
+                                f"{r.deadline_ms:.0f}ms deadline"))
         # paged: the head-of-line request reserves its pages (check and
         # commit) or queues, strictly FIFO, until retirements free them
         fits = ((lambda r: self.kv.reserve(self._commit_tokens(r)))
@@ -601,7 +1039,7 @@ class ServeEngine:
                 # the recompute this re-admission pays (adopted blocks,
                 # often its own earlier registrations, shrink it)
                 req.recomputed_tokens += max(0, len(ing) - 1 - shared)
-                self._recomputed += max(0, len(ing) - 1 - shared)
+                self._c_recomputed.inc(max(0, len(ing) - 1 - shared))
             self._pos[slot] = shared
             self._tok[slot] = ing[shared]
             self._temp[slot] = req.temperature
@@ -619,12 +1057,21 @@ class ServeEngine:
             if shared >= len(ing) - 1 and req.t_prefill_done is None:
                 # nothing to ingest: a one-token prompt or a full hit
                 req.t_prefill_done = req.t_admit
+            self._emit("admit", rid=req.rid, slot=slot,
+                       prefix_hit_tokens=shared)
+        if sp is not None:
+            sp.end()
 
         # at most one prefill call per engine step: long prompts
         # interleave chunk calls with decode steps, never starve them
-        prefilled = self.planner is not None and self.planner.has_work
-        if prefilled:
+        prefilled = False
+        if self.planner is not None and self.planner.has_work:
+            if sp is not None:
+                sp.begin("prefill")
             self._prefill_call()
+            if sp is not None:
+                sp.end()
+            prefilled = True
         in_prefill = (self.planner.in_prefill if self.planner is not None
                       else lambda s: False)
         decoding = [s for s in self.scheduler.active if not in_prefill(s)]
@@ -633,6 +1080,8 @@ class ServeEngine:
                 # map each decoding slot's write page, oldest first (a
                 # dry pool preempts the youngest, which have not mapped
                 # yet); mid-prefill passengers stay unmapped
+                if sp is not None:
+                    sp.begin("page_ensure")
                 for slot in sorted(decoding,
                                    key=lambda s: int(self._admit_seq[s])):
                     if slot in self.scheduler.active:
@@ -641,18 +1090,83 @@ class ServeEngine:
                                 s, int(self._pos[s])), slot)
                 decoding = [s for s in self.scheduler.active
                             if not in_prefill(s)]
-            self._decode_and_route(len(decoding), in_prefill)
+                if sp is not None:
+                    sp.end()
+            self._decode_and_route(decoding, in_prefill, sp)
+        elif self.audit:
+            # prefill-only step: no logits to check, but a fault may
+            # have corrupted tensors the prefill call just read
+            if sp is not None:
+                sp.begin("audit")
+            self._recover_corruption(None, [])
+            if sp is not None:
+                sp.end()
+        if self._has_deadlines:
+            if sp is not None:
+                sp.begin("deadline_sweep")
+            wall = self._wall()
+            for slot in list(self.scheduler.active):
+                req = self.scheduler.active[slot]
+                if self._deadline_passed(req, wall):
+                    self._release_slot(slot, RequestState.EXPIRED)
+                    self._abort(req, RequestState.EXPIRED,
+                                error=DeadlineExceeded(
+                                    f"rid {req.rid}: exceeded its "
+                                    f"{req.deadline_ms:.0f}ms deadline "
+                                    f"mid-flight"))
+            if sp is not None:
+                sp.end()
+        if self.auditor is not None:
+            if sp is not None:
+                sp.begin("audit")
+            try:
+                self.auditor.check_step()
+            except Exception as e:
+                self._emit("audit_violation", reason=str(e))
+                raise
+            if sp is not None:
+                sp.end()
+        dt = time.perf_counter() - t_begin
+        if sp is not None:
+            sp.step_end()
+        self._step_wall_ema = (dt if self._step_wall_ema is None
+                               else 0.8 * self._step_wall_ema + 0.2 * dt)
         self._steps += 1
 
-    def _decode_and_route(self, decoding: int, in_prefill) -> None:
+    def _decode_and_route(self, decoding: List[int], in_prefill,
+                          sp) -> None:
         """The full-batch decode step (mid-prefill slots ride along as
         passengers whose output is dropped) and its tokens' routing; a
         filled block is published to the prefix cache, generated blocks
-        included."""
-        nxt, _, _ = self._decode()
+        included.  Under audit a corrupted tensor discards the step
+        (``_recover_corruption``): every request replays through the
+        quarantined path instead."""
+        self._trace_counter("hbm.decode", self.traffic.on_decode(
+            [int(self._pos[s]) for s in decoding]))
+        if sp is not None:
+            sp.begin("decode")
+        nxt, logits, _ = self._decode()
+        if sp is not None:
+            sp.end()
+            sp.begin("host_sync")
         nxt_host = nxt.cpu().numpy()
+        if sp is not None:
+            sp.end()
         wall = self._wall()
-        self._slot_steps += decoding
+        if sp is not None:
+            sp.begin("sample")
+        if not (self.audit and self._recover_corruption(logits, decoding)):
+            self._route(decoding, in_prefill, nxt_host, wall)
+        if sp is not None:
+            sp.end()
+        self._c_decode_steps.inc()
+
+    def _route(self, decoding: List[int], in_prefill, nxt_host: np.ndarray,
+               wall: float) -> None:
+        """Commit one decode step's results: advance every decoding slot,
+        teacher-force the prompt (or a preempted request's history), or
+        append the sampled token and retire finished requests."""
+        self._c_slot_steps.inc(len(decoding))
         for slot, req in list(self.scheduler.active.items()):
             if in_prefill(slot):
                 continue
@@ -667,12 +1181,15 @@ class ServeEngine:
                 self._tok[slot] = ing[p + 1]
                 if p + 1 == len(ing) - 1 and req.t_prefill_done is None:
                     req.t_prefill_done = wall     # prompt cache resident
+                    self._emit("prefill_done", rid=req.rid, slot=slot)
                 continue
             t = int(nxt_host[slot])
             req.tokens.append(t)
             ing.append(t)
             if req.t_first is None:
                 req.t_first = wall
+                if self.events is not None:
+                    self._emit("first_token", rid=req.rid, slot=slot)
             self._tok[slot] = t
             if (len(req.tokens) >= req.max_new_tokens
                     or p + 1 >= self.max_len):
@@ -680,12 +1197,11 @@ class ServeEngine:
                 req.done_step = self._steps
                 self._release_slot(slot, RequestState.DONE)
                 self._retire(req)
-        self.decode_steps += 1
 
     def run(self) -> dict:
         """Drive until every submitted request has drained; report."""
         self.warmup()
-        self._start_clock()
+        self._clock.start()
         while self.scheduler.has_work:
             if not self.scheduler.active:
                 # idle: fast-forward the step clock to the next arrival
@@ -727,8 +1243,10 @@ class ServeEngine:
                    "activated_experts": activated,
                    "fallbacks": {"*": self.stream_fallback
                                  or "stream_weights=False"},
+                   "shards": 1,
                    "device_sparse_bytes_per_step": dense,
-                   "device_dense_bytes_per_step": dense}
+                   "device_dense_bytes_per_step": dense,
+                   "shard_fallbacks": {}}
         sparse = rep["sparse_bytes_per_step"] + head_sparse
         dense = rep["dense_bytes_per_step"] + head_dense
         return {**rep, "sparse_bytes_per_step": sparse,
@@ -767,11 +1285,39 @@ class ServeEngine:
                 "enabled": self.preempt,
                 "fallback": self.preempt_fallback,
                 "count": self.scheduler.preemptions,
-                "recomputed_tokens": self._recomputed,
+                "recomputed_tokens": self._c_recomputed.value,
             },
         }
         if self.page_len:
             rep.update(self.kv.prefix_report())
+        return rep
+
+    def lifecycle_report(self) -> dict:
+        """Terminal-state taxonomy and the overload and fault accounting.
+        Every retired request lands in exactly one terminal state (DONE,
+        CANCELLED, EXPIRED, SHED); ``shed`` also counts submit-time
+        refusals, which leave no request behind."""
+        by_state: Dict[str, int] = {}
+        for req in self.requests:
+            by_state[req.state.name] = by_state.get(req.state.name, 0) + 1
+        rep = {
+            "deadline_ms": self.deadline_ms,
+            "max_queue": self.max_queue,
+            "ttft_budget_ms": self.ttft_budget_ms,
+            "max_preempts": self.max_preempts,
+            "cancelled": self._c_cancelled.value,
+            "expired": self._c_expired.value,
+            "shed": self._c_shed.value,
+            "forced_preempts": self._forced_preempts,
+            "wasted_tokens": self._c_wasted.value,
+            "estimated_ttft_s": self.estimated_ttft_s(),
+            "terminal_states": by_state,
+            "quarantined": dict(self.quarantined),
+        }
+        if self.faults is not None:
+            rep["faults"] = self.faults.summary()
+        if self.auditor is not None:
+            rep["audit"] = self.auditor.report()
         return rep
 
     def paging_report(self) -> dict:
@@ -788,32 +1334,6 @@ class ServeEngine:
                 "reserved_reduction": 1.0}
 
     def report(self) -> dict:
-        """Serving statistics, under the reference's ``report()`` key
-        names for every part this engine has."""
-        wall = self._wall() if self._t0 is not None else 0.0
-        return {
-            "requests": self._done,
-            "retained_requests": len(self.requests),
-            "generated_tokens": self._gen_tokens,
-            "steps": self._steps,
-            "wall_s": wall,
-            "tok_per_s": (self._gen_tokens / wall if wall > 0
-                          else float("nan")),
-            "latency_s": self._h_lat.percentiles(),
-            "first_token_s": self._h_ftl.percentiles(),
-            "ttft": {"queue_s": self._h_queue.percentiles(),
-                     "prefill_s": self._h_prefill.percentiles(),
-                     "first_decode_s": self._h_fdec.percentiles()},
-            "prefill": self.prefill_report(),
-            "prefix_reuse": self.prefix_reuse_report(),
-            "slot_occupancy": (self._slot_steps
-                               / (self._steps * self.num_slots)
-                               if self._steps else 0.0),
-            "weight_sparsity": self.weight_sparsity,
-            "head_compression": self.head_compression,
-            "head_fallback": self.head_fallback,
-            "weight_stream": self.weight_stream_report(),
-            "paging": self.paging_report(),
-            "cache_resets": self.kv.resets,
-            "fallbacks": dict(self.fallbacks),
-        }
+        """Serving statistics: a rendered snapshot of the metrics
+        registry, with the reference's keys in the reference's order."""
+        return self.metrics.render()

@@ -119,6 +119,38 @@ class PackedModel:
                 for c, tensors in bd.items()
                 for n, bw in tensors.items() if bw is not None]
 
+    def replace_leaf(self, path: str, bw: Optional[BitmapWeight]) -> None:
+        """Swap the leaf at ``path`` (fault injection writes a corrupted
+        copy; quarantine writes ``None``)."""
+        _, bname, comp, name = path.split("/")
+        assert name in self.blocks[bname][comp], path
+        self.blocks[bname][comp][name] = bw
+
+    def quarantine(self, path: str, reason: str) -> bool:
+        """Serve ``path`` dense from now on: the leaf becomes ``None``
+        (``layers.matmul_or_bitmap`` then multiplies by the dense params
+        tensor) and its manifest entry flips to a fallback carrying
+        ``reason``, so ``stream_report()`` reflects the quarantine.
+        Returns False if the leaf is already dense."""
+        _, bname, comp, name = path.split("/")
+        if self.blocks.get(bname, {}).get(comp, {}).get(name) is None:
+            return False
+        self.blocks[bname][comp][name] = None
+        for e in self.manifest:
+            if e.path == path:
+                e.packed = False
+                e.reason = reason
+                e.layout = "dense"
+                e.block = None
+                e.sparse_bytes = e.dense_bytes
+        return True
+
+    def register_metrics(self, reg) -> None:
+        reg.gauge("stream.packed_tensors",
+                  lambda: len(self.packed_entries))
+        reg.gauge("stream.fallback_tensors",
+                  lambda: len(self.fallback_entries))
+
     def stream_report(self, activated_experts: Optional[int] = None
                       ) -> Dict:
         """Modeled per-step weight bytes across the stack (no head — the
@@ -138,8 +170,10 @@ class PackedModel:
             "fallback_tensors": len(self.fallback_entries),
             "activated_experts": activated_experts,
             "fallbacks": {e.path: e.reason for e in self.fallback_entries},
+            "shards": 1,
             "device_sparse_bytes_per_step": sparse,
             "device_dense_bytes_per_step": dense,
+            "shard_fallbacks": {},
         }
 
 

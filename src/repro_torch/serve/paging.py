@@ -549,6 +549,23 @@ class PagedKVCache:
 
     # --------------------------------------------------------- reports ----
 
+    def register_metrics(self, reg) -> None:
+        """Expose allocator and prefix-cache counters as gauges."""
+        reg.gauge("kv.resets", lambda: self.resets)
+        reg.gauge("kv.reserved_bytes", self.reserved_kv_bytes)
+        reg.gauge("paging.pages_in_use",
+                  lambda: sum(p.in_use for p in self.pools.values()))
+        reg.gauge("paging.pages_peak",
+                  lambda: sum(p.peak for p in self.pools.values()))
+        reg.gauge("paging.pages_total",
+                  lambda: sum(p.pool_pages for p in self.pools.values()))
+        reg.gauge("prefix.hits", lambda: self.prefix_hits)
+        reg.gauge("prefix.misses", lambda: self.prefix_misses)
+        reg.gauge("prefix.hit_tokens", lambda: self.hit_tokens)
+        reg.gauge("prefix.evictions", lambda: self.evictions)
+        reg.gauge("prefix.forks", lambda: self.forks)
+        reg.gauge("prefix.cached_blocks", lambda: len(self.prefix))
+
     def reserved_kv_bytes(self) -> int:
         """Bytes reserved for KV pages, trash page included."""
         return sum((p.pool_pages + 1) * self.page_len * p.line_bytes

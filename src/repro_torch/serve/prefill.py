@@ -136,6 +136,11 @@ class PrefillPlanner:
 
     # --------------------------------------------------------- reports ----
 
+    def register_metrics(self, reg) -> None:
+        reg.gauge("prefill.calls", lambda: self.calls)
+        reg.gauge("prefill.tokens", lambda: self.tokens_prefilled)
+        reg.gauge("prefill.in_flight", lambda: len(self._jobs))
+
     def report(self) -> Dict:
         lanes = self.calls * self.num_slots * self.chunk
         return {

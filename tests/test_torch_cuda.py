@@ -683,3 +683,44 @@ def test_bitmap_kernel_split_output_tiles_are_folded_in_one_launch(cuda):
     assert not kernel_mod.counters(cuda, plan.outputs)[:plan.outputs].any()
     torch.testing.assert_close(out.float(), ops.bitmap_spmm(
         x, bw, impl="torch").float(), atol=2e-2 * np.sqrt(8192), rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sparsity", [0.5, 0.97])     # dense / sparse walk
+@pytest.mark.parametrize("m", [1, 4, 130])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_bitmap_kernel_on_corrupted_bitmap_matches_plain(cuda, sparsity, m,
+                                                         dname):
+    """A bitflip that sets one clear bit of the last row of the last
+    tile (what the engine's ``bitflip`` fault may do to a served leaf):
+    every tile shares one non-zero pattern, so every tile fills the value
+    budget and the extra bit's element reads slot ``budget``.  The kernel
+    clamps it to the last slot as the plain version does, gives the plain
+    version's output and leaves the card without an error."""
+    r = np.random.default_rng(int(100 * sparsity) + m)
+    k, n, bk, bn = 1024, 512, 128, 128
+    mask = r.random((bk, bn)) >= sparsity
+    mask[-1, -1] = False
+    w = r.standard_normal((k, n)).astype(np.float32) * np.tile(
+        mask, (k // bk, n // bn))
+    bw = pack_bitmap(torch.from_numpy(w).to(cuda), block=(bk, bn))
+    assert bw.budget == mask.sum()
+    bits = bw.packed_bits.clone()
+    bits[-1, -1, -1, -1] |= 0x80                 # column bn - 1
+    bad = dataclasses.replace(bw, packed_bits=bits)
+    x = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)).to(
+        cuda, TYPES[dname])
+    reset_launches()
+    out = ops.bitmap_spmm(x, bad)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "bitmap_spmm": 1}
+    expect = ops.bitmap_spmm(x, bad, impl="torch")
+    tol = 2e-2 if dname == "bfloat16" else 2e-3
+    torch.testing.assert_close(out.float(), expect.float(),
+                               atol=tol * np.sqrt(k), rtol=1e-2)
+    # the flipped bit changed the last output column: the plain version
+    # reads the clamped slot there too
+    clean = ops.bitmap_spmm(x, bw, impl="torch")
+    assert not torch.equal(expect[:, -1], clean[:, -1])
+    torch.testing.assert_close(expect[:, :-1], clean[:, :-1])
+    torch.cuda.synchronize()
