@@ -27,8 +27,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in {1, 4, 64, 130}, weights pruned to {0, 0.5, 0.95}, and at the
    same shapes a near-empty stack (sparsity 0.99), a stack with all-zero
    tiles and a budget with budget % 4 != 0, each launched twice with
-   bit-identical outputs; float32 and bfloat16 X; atol 2e-3·√K (float32)
-   / 2e-2·√K (bfloat16), rtol 1e-2.
+   bit-identical outputs; then K1 at the recurrent mixers' shapes
+   (rwkv6-3b's time-mix, mix_A at BN 80, decay_A, decay_B, channel-mix
+   and head; jamba's mamba in_proj, x_proj at BN 96, dt_proj, out_proj;
+   jamba smoke's dt_proj at BK 4) and K1g at rwkv6-3b's 5-group mix_B
+   (32, 2560), rows M in {1, 4, 64}, weights pruned to {0, 0.5, 0.95};
+   float32 and bfloat16 X; atol 2e-3·√K (float32) / 2e-2·√K (bfloat16),
+   rtol 1e-2.
 3. olmo-1b: ``ServeEngine`` on the full configuration (16 layers, full
    widths, seeded random weights) at sparsity 0.5, 4 slots, serving a
    seeded Poisson trace of 8 requests: every request served its whole
@@ -114,6 +119,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    refusing one submit, cancels queued and mid-decode, a deadline
    expiring mid-flight with partial tokens; the terminal states
    partition the history and the pool is whole).
+7. The recurrent mixers.  rwkv6-3b on the full configuration (32
+   layers, full widths, seeded random weights) at sparsity 0.5, 4 slots,
+   ``max_len`` 256, serving 8 requests of a seeded Poisson trace
+   (prompts of 4-16 tokens, walked; budgets 16-32): every request served
+   its whole budget, K1 launched 11 × 32 + 1 = 353 times and K1g
+   (``mix_B``) 32 times per decode step, each fallback's reason printed,
+   no dense copy of a packed weight, one decode step's logits through
+   the kernels agreeing with the plain version (phase 3's rule), and a
+   second decode step from the same state giving bit-identical logits
+   and state; then K1's and K1g's launches of one step timed against
+   their byte bound, and the profiled idle share.  Then one mamba block
+   at jamba's full widths (d 4096, dI 8192, N 16, dt_rank 256), pruned
+   to 0.5, stepped 8 times at M = 4 through K1 against the plain
+   version.  Then jamba's hybrid wiring at smoke widths only (jamba
+   does not fit one card at full width): its engine on the contiguous
+   cache and paged with recompute-on-preempt on a 48-token pool
+   (preemptions required) serve the same tokens.
 
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
 its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
@@ -151,6 +173,19 @@ SPARSITIES = (0.0, 0.5, 0.75, 0.95)
 ROWS = (1, 4, 8, 130)
 GRANITE_SPARSITIES = (0.0, 0.5, 0.95)
 GRANITE_ROWS = (1, 4, 64, 130)
+# the recurrent mixers' K1 shapes: rwkv6-3b's time-mix (r/k/v/g/o; mix_A,
+# BN 80; decay_A; decay_B, whose X is float32), channel-mix and head,
+# then jamba's mamba in_proj, x_proj (BN 96), dt_proj, out_proj, and
+# jamba smoke's dt_proj (BK 4); K1g: rwkv6-3b's 5-group mix_B
+SSM_SHAPES = (("rwkv w_rkvgo", 2560, 2560), ("rwkv mix_A", 2560, 160),
+              ("rwkv decay_A", 2560, 64), ("rwkv decay_B", 64, 2560),
+              ("rwkv cm_k", 2560, 8960), ("rwkv cm_v", 8960, 2560),
+              ("rwkv head", 2560, 65536), ("mamba in_proj", 4096, 16384),
+              ("mamba x_proj", 8192, 288), ("mamba dt_proj", 256, 8192),
+              ("mamba out_proj", 8192, 4096), ("smoke dt_proj", 4, 128))
+MIX_B_SHAPES = (("rwkv mix_B", 32, 2560),)
+SSM_ROWS = (1, 4, 64)
+SSM_SPARSITIES = (0.0, 0.5, 0.95)
 ATOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 ATTN_ATOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 # Phase 5 also scales each limit to what it compares: atol this share of
@@ -931,7 +966,8 @@ def time_group(name, calls, kernel, densify, library, library_name,
 def time_step(label, seq, kernels, libraries):
     """One step's launches (``seq`` of (x, weight, kernel name)) timed
     as a CUDA graph: kernel, bound, plain (eager, once) and the library
-    call with dense bf16 weights."""
+    call with dense weights in X's type (bf16, float32 for rwkv's
+    decay_B)."""
     from repro_torch.sparse.format import unpack_bitmap_stacked
     moved = sum(call_bound(x, w)[0] for x, w, _ in seq)
     ops_ = sum(call_bound(x, w)[1] for x, w, _ in seq)
@@ -942,7 +978,7 @@ def time_step(label, seq, kernels, libraries):
                            for x, w, n in seq], 10)
     t_p = time_ms(lambda: [kernels[n](x, w, impl="torch")
                            for x, w, n in seq], 1)
-    dense = [unpack_bitmap_stacked(w).to(torch.bfloat16) for _, w, _ in seq]
+    dense = [unpack_bitmap_stacked(w).to(x.dtype) for x, w, _ in seq]
     t_l = graph_ms(lambda: [libraries[n](x, d) for (x, _, n), d in
                             zip(seq, dense)], 20)
     del dense
@@ -1810,6 +1846,233 @@ def lifecycle_pass(base, shared, device) -> None:
     torch.cuda.empty_cache()
 
 
+# Phase 7's rwkv6-3b run: 8 requests of a seeded Poisson trace, prompts
+# of 4-16 tokens (walked: recurrent state has no chunked prefill) and
+# budgets of 16-32, on 4 slots.
+SSM_TRACE = dict(n_requests=8, rate=0.5, seed=0, prompt_len=(4, 16),
+                 max_new=(16, 32))
+
+
+def fallback_reasons(eng) -> dict:
+    """{reason: period-stacked tensors} of the manifest's dense rows."""
+    out: dict = {}
+    for e in eng.packed.fallback_entries:
+        out[e.reason] = out.get(e.reason, 0) + 1
+    return out
+
+
+def same_state_twice(eng, gen) -> None:
+    """One decode step through the kernels, twice from the same copy of
+    the engine's state (its cache after serving): the logits and every
+    new state leaf (rwkv ``s`` / ``x_prev`` / ``cm_x_prev``, mamba ``h`` /
+    ``conv``, KV lines) must be bit-identical, so the in-place state
+    writes are deterministic."""
+    from repro_torch.models.model import decode_step
+    cfg, device = eng.cfg, eng.device
+    tok = torch.randint(0, cfg.vocab_size, (eng.num_slots, 1), generator=gen,
+                        device=device)
+    pos = torch.arange(eng.num_slots, device=device) * 5 + 3
+    runs = []
+    for _ in range(2):
+        cache = {b: {k: t.clone() for k, t in leaf.items()}
+                 for b, leaf in eng.kv.cache.items()}
+        logits, cache = decode_step(eng.params, cache, cfg, tok, pos,
+                                    lm_weight=eng.lm_weight,
+                                    packed=eng.packed.blocks)
+        runs.append((logits, cache))
+    sync()
+    (la, ca), (lb, cb) = runs
+    assert torch.equal(la, lb), "logits differ between two runs"
+    for b, leaf in ca.items():
+        for k, t in leaf.items():
+            assert torch.equal(t, cb[b][k]), (b, k)
+    print(f"{cfg.name}: a second decode step from the same state gave "
+          f"bit-identical logits and state "
+          f"({', '.join(k for leaf in ca.values() for k in leaf)}, each "
+          f"over {cfg.num_periods} layers)")
+
+
+def rwkv_engine_phase(cfg, device, gen):
+    """Phase 7 (rwkv6-3b serving).  Returns the engine and its path
+    record."""
+    from repro_torch.serve import ServeEngine, poisson_trace
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, num_slots=4, max_len=256, sparsity=0.5, seed=0,
+                      device=device)
+    ws = eng.weight_stream_report()
+    print(f"engine {cfg.name}: init {eng.init_s:.2f}s, prune + pack "
+          f"{eng.pack_s:.2f}s (constructor {time.perf_counter() - t0:.2f}s)"
+          f" | weight sparsity {eng.weight_sparsity:.4f} | head compression"
+          f" {eng.head_compression:.3f}x | max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"weight bytes per decode step: modeled "
+          f"{ws['sparse_bytes_per_step'] / 1e9:.3f} GB packed (dense "
+          f"{ws['dense_bytes_per_step'] / 1e9:.3f} GB) | executed "
+          f"{executed_bytes(eng) / 1e9:.3f} GB")
+    for reason, n in fallback_reasons(eng).items():
+        print(f"  fallback, {n} period-stacked tensors: {reason}")
+    assert_no_dense_copy(eng)
+    want = per_step(eng)
+    if cfg.name == "rwkv6-3b":
+        assert want == {"bitmap_spmm": 11 * 32 + 1,
+                        "bitmap_spmm_grouped": 32}, want
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **SSM_TRACE)
+    rep = serve(eng, trace, f"{cfg.name} packed engine, prompt walk")
+    path = check_counts(eng, rep, f"{cfg.name}, prompt walk")
+    print(f"{cfg.name}: {rep['tok_per_s']:.2f} tok/s | latency p50 "
+          f"{rep['latency_s']['p50'] * 1e3:.1f} ms p99 "
+          f"{rep['latency_s']['p99'] * 1e3:.1f} ms | wall per decode step "
+          f"{1e3 * rep['wall_s'] / eng.decode_steps:.2f} ms")
+    decode_step_check(eng, gen)
+    same_state_twice(eng, gen)
+    return eng, path
+
+
+def rwkv_timing_phase(eng, device, gen, m: int = 4):
+    """Phase 7 (timing): K1's and K1g's launches of one rwkv6-3b decode
+    step at M = 4 (decay_B's X float32, the rest bf16), each beside its
+    bound, the plain version and the library call."""
+    from repro_torch.kernels import ops
+    cfg = eng.cfg
+    blk = eng.packed.blocks["b0"]
+    tm, cm = blk["rwkv"], blk["rwkv_cm"]
+
+    def xs(*shape, dt=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=device, dtype=dt)
+
+    x_d, x_f = xs(m, cfg.d_model), xs(m, cfg.d_ff)
+    x_lo = xs(m, tm["decay_A"].shape[1] if tm["decay_A"] is not None
+              else 64, dt=torch.float32)
+    x_g = xs(5, m, tm["mix_B"].shape[0]) if tm["mix_B"] is not None else None
+    seq = []
+    for p in range(cfg.num_periods):
+        for name in ("mix_A", "w_r", "w_k", "w_v", "w_g", "w_o",
+                     "decay_A", "decay_B"):
+            if tm[name] is not None:
+                seq.append((x_lo if name == "decay_B" else x_d,
+                            tm[name].period(p), "bitmap_spmm"))
+        if tm["mix_B"] is not None:
+            seq.append((x_g, tm["mix_B"].period(p), "bitmap_spmm_grouped"))
+        for name, x in (("cm_k", x_d), ("cm_v", x_f), ("cm_r", x_d)):
+            if cm[name] is not None:
+                seq.append((x, cm[name].period(p), "bitmap_spmm"))
+    seq.append((x_d, eng.lm_weight, "bitmap_spmm"))
+    kernels = {"bitmap_spmm": ops.bitmap_spmm,
+               "bitmap_spmm_grouped": ops.bitmap_spmm_grouped}
+    libraries = {"bitmap_spmm": torch.matmul,
+                 "bitmap_spmm_grouped": torch.bmm}
+    return {name: time_step(f"{cfg.name} decode step, {name} only",
+                            [s for s in seq if s[2] == name], kernels,
+                            libraries)
+            for name in kernels}
+
+
+def mamba_block_check(cfg, device, gen, m: int = 4, steps: int = 8) -> dict:
+    """Phase 7: one mamba block at ``cfg``'s full widths (jamba: d 4096,
+    dI 8192, N 16, dt_rank 256, conv 4), seeded, pruned to 0.5 and packed
+    (in_proj, x_proj at BN 96, dt_proj, out_proj through K1), stepped
+    ``steps`` times at M = ``m`` through the kernels and through the
+    plain versions, each carrying its own state; outputs and states held
+    to each other under phase 3's rule.  Returns its path record."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import ssm
+    from repro_torch.models.config import BlockCfg
+    from repro_torch.models.model import _period, init_params
+    from repro_torch.serve.packed import pack_model
+    from repro_torch.sparse import global_l1_prune
+    one = dataclasses.replace(cfg, num_layers=1, vocab_size=256,
+                              pattern=(BlockCfg(mixer="mamba", ffn="none"),))
+    params = global_l1_prune(init_params(gen, one, device=device), 0.5)
+    packed = pack_model(params)
+    mp = _period(params["blocks"]["b0"]["mamba"], 0)
+    mk = _period(packed.blocks["b0"]["mamba"], 0)
+    blocks = {n: bw.block for n, bw in mk.items() if bw is not None}
+    dt = torch.bfloat16
+    di, n = one.mamba_d_inner, one.mamba_d_state
+    state = {impl: {"h": torch.zeros(m, di, n, device=device),
+                    "conv": torch.zeros(m, one.mamba_conv - 1, di,
+                                        device=device, dtype=dt)}
+             for impl in (None, "torch")}
+    reset_launches()
+    for step in range(steps):
+        x = torch.randn(m, 1, one.d_model, generator=gen, device=device
+                        ).to(dt)
+        out = {}
+        for impl in (None, "torch"):
+            out[impl], state[impl] = ssm.mamba_decode(
+                mp, x, state[impl], one, packed=mk, impl=impl)
+        sync()
+        agree(out[None][:, 0], out["torch"][:, 0],
+              f"mamba block step {step} output", argmax=False)
+        for k in ("h", "conv"):
+            agree(state[None][k].reshape(m, -1),
+                  state["torch"][k].reshape(m, -1),
+                  f"mamba block step {step} {k}", argmax=False)
+    launches = LAUNCHES["bitmap_spmm"]
+    assert launches == len(blocks) * steps, (launches, blocks)
+    print(f"{cfg.name} mamba block at full width (d {one.d_model}, dI {di}, "
+          f"N {n}, dt_rank {one.mamba_dt_rank}): {steps} steps at M={m}, "
+          f"{len(blocks)} K1 projections per step {blocks}, "
+          f"{launches} launches")
+    return {"path": f"{cfg.name}, one mamba block at full width",
+            "launches": launches, "launches_per_step": len(blocks),
+            "decode_steps": steps, "prefill_calls": 0}
+
+
+def jamba_smoke_engines(cfg, device) -> list:
+    """Phase 7: jamba's hybrid wiring (mamba, attention and MoE blocks,
+    the slotted state reset, dt_proj's BK = 4) at smoke widths only: the
+    engine on the contiguous cache, then paged with recompute-on-preempt
+    on a pool too small for every slot; the two runs serve the same
+    tokens.  Returns their path records."""
+    from repro_torch.serve import ServeEngine, poisson_trace
+    trace = poisson_trace(8, rate=1.0, seed=1, vocab_size=cfg.vocab_size,
+                          prompt_len=(4, 8), max_new=(8, 16))
+    same = dict(num_slots=4, max_len=64, sparsity=0.5, seed=0, device=device)
+    contig = ServeEngine(cfg, **same)
+    crep = serve(contig, trace, f"{cfg.name} (smoke widths), contiguous")
+    paths = [check_counts(contig, crep, f"{cfg.name} smoke, contiguous")]
+    print(f"  fallbacks: {fallback_reasons(contig)}")
+    paged = ServeEngine(cfg, paged=True, page_len=4, page_pool_tokens=48,
+                        preempt=True, **same)
+    prep = serve(paged, trace, f"{cfg.name} (smoke widths), paged + preempt"
+                               f" on a 48-token pool")
+    paths.append(check_counts(paged, prep, f"{cfg.name} smoke, paged + "
+                                           f"preempt"))
+    pe = prep["prefix_reuse"]["preempt"]
+    paged.kv.audit()
+    assert pe["count"] >= 1, pe
+    assert prep["tokens"] == crep["tokens"], "paged + preempt parts"
+    print(f"{cfg.name} at smoke widths: paged + preempt ({pe['count']} "
+          f"preemptions, {pe['recomputed_tokens']} tokens recomputed) "
+          f"served the contiguous run's tokens")
+    return paths
+
+
+def ssm_phase(rwkv_cfg, jamba_cfg, jamba_smoke, device, gen) -> dict:
+    """Phase 7: the recurrent mixers.  Returns {kernel: [path records]}
+    and rwkv6-3b's per-step times."""
+    t0 = time.perf_counter()
+    eng, path = rwkv_engine_phase(rwkv_cfg, device, gen)
+    times = rwkv_timing_phase(eng, device, gen)
+    profile_steps(eng)
+    del eng
+    torch.cuda.empty_cache()
+    t0 = phase(f"phase 7a, {rwkv_cfg.name}", t0)
+    block = mamba_block_check(jamba_cfg, device, gen)
+    torch.cuda.empty_cache()
+    smoke = jamba_smoke_engines(jamba_smoke, device)
+    phase(f"phase 7b, {jamba_cfg.name}: one full-width mamba block, the "
+          f"smoke engine", t0)
+    return {"bitmap_spmm": [path["bitmap_spmm"], block]
+            + [p["bitmap_spmm"] for p in smoke],
+            "bitmap_spmm_grouped": [path["bitmap_spmm_grouped"]]
+            + [p["bitmap_spmm_grouped"] for p in smoke
+               if "bitmap_spmm_grouped" in p],
+            "times": times}
+
+
 def phase(label: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[{label}: {now - t0:.1f}s]")
@@ -1819,8 +2082,10 @@ def phase(label: str, t0: float) -> float:
 def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         olmo_shapes=OLMO_SHAPES, granite_shapes=GRANITE_SHAPES,
         expert_shapes=GRANITE_EXPERT_SHAPES, attn=None,
-        rows=MATMUL_ROWS, timed_rows=(4, 2048)) -> dict:
-    """Phases 2-5; returns the kernels record.  A kernel's ``launches``
+        rows=MATMUL_ROWS, timed_rows=(4, 2048), rwkv_cfg=None,
+        jamba_cfg=None, jamba_smoke=None, ssm_shapes=SSM_SHAPES,
+        mix_b_shapes=MIX_B_SHAPES) -> dict:
+    """Phases 2-7; returns the kernels record.  A kernel's ``launches``
     sums its ``paths`` (each path's run with the counts set to 0 just
     before it).  K1's and K1g's ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are one decode step's calls at M = 4; K2's are
@@ -1831,13 +2096,17 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     worst = {"bitmap_spmm": max(
         kernel_against_plain(device, gen, olmo_shapes, ROWS, SPARSITIES),
         kernel_against_plain(device, gen, granite_shapes, GRANITE_ROWS,
-                             GRANITE_SPARSITIES))}
+                             GRANITE_SPARSITIES),
+        kernel_against_plain(device, gen, ssm_shapes, SSM_ROWS,
+                             SSM_SPARSITIES))}
     worst["bitmap_spmm_grouped"] = max(
         kernel_against_plain(device, gen, expert_shapes, GRANITE_ROWS,
                              GRANITE_SPARSITIES,
                              groups=granite_cfg.num_experts),
         grouped_edge_cases(device, gen, expert_shapes, GRANITE_ROWS,
-                           granite_cfg.num_experts))
+                           granite_cfg.num_experts),
+        kernel_against_plain(device, gen, mix_b_shapes, SSM_ROWS,
+                             SSM_SPARSITIES, groups=5))
     print(f"kernels against plain: {dict(LAUNCHES)} comparison launches, "
           f"max |kernel - plain| {worst}")
     reset_launches()
@@ -1866,7 +2135,12 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     lifecycle_pass(olmo, shared, device)
     del olmo
     torch.cuda.empty_cache()
-    phase(f"phase 6, {olmo_cfg.name} under faults, audit and telemetry", t)
+    t = phase(f"phase 6, {olmo_cfg.name} under faults, audit and "
+              f"telemetry", t)
+
+    ssm = ssm_phase(rwkv_cfg, jamba_cfg, jamba_smoke, device, gen)
+    torch.cuda.empty_cache()
+    phase("phase 7, the recurrent mixers", t)
 
     def record(name, paths, times, scope, **extra):
         ms, plain_ms, b_ms, by, lib_ms = times
@@ -1878,9 +2152,21 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                 "library_ms": lib_ms, "ms_scope": scope, **extra}
 
     k1_paths = ([p["bitmap_spmm"] for p in olmo_paths] + [chaos_path]
-                + [p["bitmap_spmm"] for p in granite_paths])
-    k1g_paths = [p["bitmap_spmm_grouped"] for p in granite_paths]
+                + [p["bitmap_spmm"] for p in granite_paths]
+                + ssm["bitmap_spmm"])
+    k1g_paths = ([p["bitmap_spmm_grouped"] for p in granite_paths]
+                 + ssm["bitmap_spmm_grouped"])
     g1 = g_times["bitmap_spmm"]
+    g_k1_per_step = granite_paths[0]["bitmap_spmm"]["launches_per_step"]
+
+    def rwkv(name):
+        ms, plain_ms, b_ms, by, lib_ms = ssm["times"][name]
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": by, "library_ms": lib_ms,
+                "ms_scope": f"one {rwkv_cfg.name} decode step: "
+                            f"{ssm[name][0]['launches_per_step']} launches "
+                            f"at M=4"}
+
     return {"kernels": [
         record("bitmap_spmm", k1_paths, olmo_times,
                f"one {olmo_cfg.name} decode step: "
@@ -1888,8 +2174,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                granite={"ms": g1[0], "plain_ms": g1[1], "bound_ms": g1[2],
                         "bound_by": g1[3], "library_ms": g1[4],
                         "ms_scope": f"one {granite_cfg.name} decode step: "
-                                    f"{k1_paths[-1]['launches_per_step']} "
-                                    f"launches at M=4"}),
+                                    f"{g_k1_per_step} launches at M=4"},
+               rwkv6=rwkv("bitmap_spmm")),
         record("bitmap_spmm_grouped", k1g_paths,
                g_times["bitmap_spmm_grouped"],
                f"one {granite_cfg.name} decode step: "
@@ -1899,7 +2185,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                            "bound_ms": whole[2], "bound_by": whole[3],
                            "library_ms": whole[4],
                            "ms_scope": "both kernels' launches of one "
-                                       "decode step"})] + [
+                                       "decode step"},
+               rwkv6=rwkv("bitmap_spmm_grouped"))] + [
         record(name, [path], tuple(timings[0][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")),
             f"{timings[0]['shape']}, bf16; library "
@@ -1912,14 +2199,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs only on the card",
               file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     smi = card_and_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     record = run(get_config("olmo-1b"), get_config("granite-moe-3b-a800m"),
-                 get_config("gemma3-4b"), torch.device("cuda"), gen)
+                 get_config("gemma3-4b"), torch.device("cuda"), gen,
+                 rwkv_cfg=get_config("rwkv6-3b"),
+                 jamba_cfg=get_config("jamba-v0.1-52b"),
+                 jamba_smoke=get_smoke_config("jamba-v0.1-52b"))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s"
           f" on {smi} (the kernels line: launches over the main-path runs; "
           f"times per decode step for K1 and K1g, per call for K2-K4)")

@@ -244,13 +244,19 @@ def x_bulk(x: torch.Tensor, bk: int) -> int:
 _COUNTERS: dict = {}
 
 
-def counters(device: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 buffer of at least ``n`` counters on ``device``.
-    The kernel leaves every counter it uses at zero, so one buffer serves
-    every launch on the device's stream; a larger one replaces it when a
-    call needs more, and the old one is kept alive, since a captured CUDA
-    graph may still point at it."""
-    bufs = _COUNTERS.setdefault(device, [])
+def counters(device: torch.device, n: int,
+             stream: int | None = None) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` counters for launches on
+    ``stream`` (a ``cuda_stream`` handle; default the device's current
+    stream).  The kernel leaves every counter it uses at zero, so one
+    buffer serves every launch in one stream's order; launches on two
+    streams may overlap, and would interleave their folds in one buffer,
+    so each stream has its own.  A larger buffer replaces a stream's
+    when a call needs more, and the old one is kept alive, since a
+    captured CUDA graph may still point at it."""
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    bufs = _COUNTERS.setdefault((device, stream), [])
     if not bufs or bufs[-1].numel() < n:
         bufs.append(torch.zeros(max(n, 1 << 16), dtype=torch.int32,
                                 device=device))
@@ -267,7 +273,8 @@ def _launch(name: str, x: torch.Tensor, w: BitmapWeight, out: torch.Tensor,
                  _build.sm_count(x.device), xf, vf)
     partial = (torch.empty(plan.partial_floats, dtype=torch.float32,
                            device=x.device) if plan.partial_floats else None)
-    cnt = counters(x.device, plan.outputs)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    cnt = counters(x.device, plan.outputs, stream)
     lead = (groups,) if groups else ()
     rc = _entry(grouped=bool(groups))(
         x.data_ptr(), w.packed_bits.data_ptr(), w.values.data_ptr(),
@@ -276,8 +283,7 @@ def _launch(name: str, x: torch.Tensor, w: BitmapWeight, out: torch.Tensor,
         *lead, m, kt, nt, bk, bn, w.budget, plan.rows, plan.threads,
         plan.blocks, plan.cluster, plan.chunk, plan.stages, plan.stage_bytes, plan.off_bits,
         plan.off_rs, plan.off_x, plan.smem, x_bulk(x, bk), xf, vf,
-        _build.TYPE_FLAG[out.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.TYPE_FLAG[out.dtype], stream)
     _build.check_launch(name, rc)
     LAUNCHES[name] += 1
 

@@ -35,6 +35,19 @@ def norm(x: torch.Tensor, scale: Optional[torch.Tensor],
     return y.to(x.dtype)
 
 
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor,
+                     heads: int) -> torch.Tensor:
+    """Per-head group norm (the RWKV output norm) in float32, eps 1e-5,
+    with the population variance (``jnp.var``'s; torch's default is the
+    unbiased one).  x: (..., H·Dh)."""
+    shp = x.shape
+    xf = x.reshape(*shp[:-1], heads, shp[-1] // heads).float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + 1e-5)
+    return (y.reshape(shp) * scale.float()).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """x: (B, S, H, D) with D even; positions: (B, S).  Halves are

@@ -4,11 +4,13 @@ Port of the decode-path parts of ``repro/models/model.py``.  Parameters
 are a nested dict of tensors with the reference's path names, block
 leaves stacked over periods (leading dim P).  The reference's
 ``lax.scan`` over periods becomes a Python loop over the period index;
-the KV cache is updated in place.  Attention mixers with MLP, MoE (or
-no) FFNs are ported, on the decode path and chunked prefill, over the
-contiguous cache or the paged one (page pools read and written through
-per-slot page tables, ``serve/paging.py``); mamba and rwkv blocks raise
-``NotImplementedError``.
+the cache is updated in place.  Attention mixers with MLP, MoE (or no)
+FFNs run on the decode path and chunked prefill, over the contiguous
+cache or the paged one (page pools read and written through per-slot
+page tables, ``serve/paging.py``).  Mamba and RWKV6 mixers and the RWKV
+channel-mix (``models/ssm.py``) run on the decode path, their state
+slotted beside the KV cache; chunked prefill has no path for them and
+raises, as the reference's does.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.config import BlockCfg, ModelConfig
 from repro_torch.sparse.format import BitmapWeight
 from repro_torch.sparse.pruning import keystr, tree_items
@@ -207,11 +210,17 @@ def paged_addressing(page_slots: int, page_len: int,
 def _cache_shapes(cfg: ModelConfig, blk: BlockCfg, batch: int,
                   max_len: int, page_len: int = 0,
                   pool_pages: Optional[int] = None) -> Dict[str, tuple]:
-    if blk.mixer != "attn":
-        raise NotImplementedError(
-            f"{blk.mixer} mixer state is not ported yet")
     p = cfg.num_periods
     hd = cfg.resolved_head_dim
+    if blk.mixer == "mamba":
+        return {"h": (p, batch, cfg.mamba_d_inner, cfg.mamba_d_state),
+                "conv": (p, batch, cfg.mamba_conv - 1, cfg.mamba_d_inner)}
+    if blk.mixer == "rwkv":
+        return {"s": (p, batch, cfg.rwkv_heads, cfg.rwkv_head_dim,
+                      cfg.rwkv_head_dim),
+                "x_prev": (p, batch, cfg.d_model)}
+    if blk.mixer != "attn":
+        raise ValueError(blk.mixer)
     if page_len > 0:
         # a pool of pages shared by all slots: axis 1 the physical page
         # (page 0 the trash page), axis 2 the line within it
@@ -228,18 +237,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device | str | None = None,
                page_len: int = 0,
                pool_pages: Optional[Dict[str, int]] = None) -> Dict:
-    """Decode cache ``{bname: {"k", "v"}}`` in the compute type, zeroed,
-    on ``device`` (``cuda`` unless named): contiguous (P, batch,
-    capacity, Hkv, hd), or with ``page_len`` > 0 paged pools (P,
-    pool_pages[bname], page_len, Hkv, hd) (default: the worst case
-    ``batch × page_slots`` pages plus the trash page)."""
+    """Decode cache, zeroed, on ``device`` (``cuda`` unless named).
+    Attention blocks hold ``{"k", "v"}``: contiguous (P, batch, capacity,
+    Hkv, hd), or with ``page_len`` > 0 paged pools (P, pool_pages[bname],
+    page_len, Hkv, hd) (default: the worst case ``batch × page_slots``
+    pages plus the trash page).  Mamba blocks hold ``h`` (P, batch, dI, N)
+    and ``conv`` (P, batch, K-1, dI), RWKV6 blocks ``s`` (P, batch, H, hd,
+    hd) and ``x_prev`` (P, batch, D), and an RWKV channel-mix
+    ``cm_x_prev`` (P, batch, D): slotted on either layout.  ``h`` and
+    ``s`` are float32, every other leaf the compute type."""
     device = resolve_device(device)
     dt = DTYPES[cfg.compute_dtype]
-    return {f"b{i}": {k: torch.zeros(s, dtype=dt, device=device)
-                      for k, s in _cache_shapes(
-                          cfg, blk, batch, max_len, page_len,
-                          (pool_pages or {}).get(f"b{i}")).items()}
-            for i, blk in enumerate(cfg.pattern)}
+    out = {}
+    for i, blk in enumerate(cfg.pattern):
+        shp = _cache_shapes(cfg, blk, batch, max_len, page_len,
+                            (pool_pages or {}).get(f"b{i}"))
+        if blk.ffn == "rwkv_cm":
+            shp["cm_x_prev"] = (cfg.num_periods, batch, cfg.d_model)
+        out[f"b{i}"] = {k: torch.zeros(
+            s, dtype=torch.float32 if k in ("h", "s") else dt,
+            device=device) for k, s in shp.items()}
+    return out
 
 
 def _decode_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
@@ -332,22 +350,41 @@ def decode_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
             bp = _period(params["blocks"][bname], per)
             pc = {k: v[per] for k, v in cache[bname].items()}
             pw = _period((packed or {}).get(bname), per) or {}
-            if blk.mixer != "attn":
-                raise NotImplementedError(
-                    f"{blk.mixer} mixers are not ported yet")
-            x = x + _decode_attn(bp["attn"], x, pc, cfg, blk, pos,
-                                 packed=pw.get("attn"), impl=impl,
-                                 page_table=(page_tables or {}).get(bname))
-            x = _ffn(bp, pw, x, cfg, blk, impl)
+            if blk.mixer == "attn":
+                x = x + _decode_attn(bp["attn"], x, pc, cfg, blk, pos,
+                                     packed=pw.get("attn"), impl=impl,
+                                     page_table=(page_tables or {}).get(
+                                         bname))
+            else:
+                mix = ssm.mamba_decode if blk.mixer == "mamba" \
+                    else ssm.rwkv_decode
+                xn = L.norm(x, bp[blk.mixer].get("norm"), cfg.norm)
+                o, st = mix(bp[blk.mixer], xn, pc, cfg,
+                            packed=pw.get(blk.mixer), impl=impl)
+                x = x + o
+                _write_state(pc, st)
+            x = _ffn(bp, pw, x, cfg, blk, impl, pc)
     return L.norm(x, params.get("final_norm"), cfg.norm), cache
 
 
+def _write_state(pc: Dict[str, torch.Tensor],
+                 new: Dict[str, torch.Tensor]) -> None:
+    """Write a recurrent block's new state into its cache views, in
+    place.  Called once the step has read all of the old state: the new
+    tensors never alias the views they overwrite."""
+    for k, t in new.items():
+        pc[k].copy_(t)
+
+
 def _ffn(bp: Dict, pw: Dict, x: torch.Tensor, cfg: ModelConfig,
-         blk: BlockCfg, impl: Optional[str]) -> torch.Tensor:
+         blk: BlockCfg, impl: Optional[str],
+         pc: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """The residual FFN sub-block of one layer: x (B, S, D) -> x + ffn.
     MoE dispatches each of the B·S tokens as its own row (x folded to
     (B·S, 1, D)), so a prefill chunk routes, and drops at capacity, token
-    for token as the decode steps would."""
+    for token as the decode steps would.  The RWKV channel-mix (decode
+    only) reads its ``cm_x_prev`` from the period's cache views ``pc``
+    and writes the normed input back there."""
     if blk.ffn == "mlp":
         xn = L.norm(x, bp["mlp"].get("norm"), cfg.norm)
         return x + L.mlp(bp["mlp"], xn, cfg, packed=pw.get("mlp"),
@@ -358,8 +395,15 @@ def _ffn(bp: Dict, pw: Dict, x: torch.Tensor, cfg: ModelConfig,
         mo = L.moe_ffn(bp["moe"], xn.reshape(b * s, 1, d), cfg,
                        packed=pw.get("moe"), impl=impl)
         return x + mo.reshape(b, s, d)
+    if blk.ffn == "rwkv_cm":
+        xn = L.norm(x, bp["rwkv_cm"].get("norm"), cfg.norm)
+        out = x + ssm.rwkv_channel_mix(bp["rwkv_cm"], xn,
+                                       pc["cm_x_prev"][:, None],
+                                       packed=pw.get("rwkv_cm"), impl=impl)
+        _write_state(pc, {"cm_x_prev": xn[:, 0]})
+        return out
     if blk.ffn != "none":
-        raise NotImplementedError(f"{blk.ffn} FFNs are not ported yet")
+        raise ValueError(blk.ffn)
     return x
 
 

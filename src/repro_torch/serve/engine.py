@@ -14,10 +14,11 @@ Port of ``repro/serve/engine.py``:
 * weights pruned once (``global_l1_prune``) and the whole decode stack
   packed once into the paper's ``BitmapWeight`` format
   (``serve/packed.py``), plus the per-tensor-pruned LM head: every
-  attention and MLP projection and the head go through
+  attention, MLP, mamba and RWKV projection and the head go through
   ``kernels/ops.bitmap_spmm`` on every decode step, and every MoE
-  expert stack through ``kernels/ops.bitmap_spmm_grouped`` — on the
-  card, the hand-written CUDA kernels;
+  expert stack and RWKV's ``mix_B`` through
+  ``kernels/ops.bitmap_spmm_grouped`` — on the card, the hand-written
+  CUDA kernels;
 * prompts are walked one position per decode step (teacher forcing),
   or, with ``prefill_chunk`` > 0, ingested ``prefill_chunk`` tokens at a
   time through one batched chunked-prefill call per engine step
@@ -44,9 +45,11 @@ snapshot, and ``traffic_out`` the per-role HBM ledger
 
 It runs on ``cuda`` unless the caller passes ``device="cpu"`` (the CPU
 takes the kernels' plain versions); with no card and no explicit CPU it
-raises.  Recurrent (mamba / rwkv) blocks and data-sharded page pools
-are not ported yet, nor is the traffic ledger's compiled-HLO
-cross-check (the port has no HLO).
+raises.  Recurrent blocks (mamba, RWKV6 and its channel-mix) serve by
+the prompt walk, their per-slot state zeroed on every admission, a
+re-admission after preemption or quarantine included.  The frames
+frontend and data-sharded page pools are not ported, nor is the traffic
+ledger's compiled-HLO cross-check (the port has no HLO).
 
 One deliberate difference from the reference: a quarantined LM head is
 served dense *as it was pruned before packing* (``head_sparsity``), not
@@ -107,13 +110,10 @@ def pack_lm_head(params, cfg: ModelConfig, sparsity: float = 0.0,
 
 
 def _unported(cfg: ModelConfig) -> List[str]:
-    out = sorted({f"{b.mixer} mixer" for b in cfg.pattern
-                  if b.mixer != "attn"}
-                 | {f"{b.ffn} FFN" for b in cfg.pattern
-                    if b.ffn not in ("mlp", "moe", "none")})
-    if cfg.frontend == "frames":
-        out.append("frames frontend")
-    return out
+    """What ``cfg`` needs that the engine does not serve: the frames
+    frontend, whose per-step embeds the reference draws from a
+    ``jax.random`` key the port cannot replay."""
+    return ["frames frontend"] if cfg.frontend == "frames" else []
 
 
 def prefill_fallback(cfg: ModelConfig) -> Optional[str]:

@@ -177,7 +177,7 @@ class PagedKVCache:
         self.cache = init_cache(
             cfg, num_slots, max_len, device=device, page_len=page_len,
             pool_pages={b: p.pool_pages + 1 for b, p in self.pools.items()})
-        self.device = next(iter(self.cache.values()))["k"].device
+        self.device = self.cache[next(iter(self.pools))]["k"].device
         self._commit: List[Dict[str, int]] = [{} for _ in range(num_slots)]
         # device tables: mappings change on a few steps per request
         # (admit, page boundary, retire), so steps reuse one upload
@@ -219,14 +219,19 @@ class PagedKVCache:
 
     def admit(self, slot: int, need_tokens: int,
               prefix: Optional[List[PrefixBlock]] = None) -> int:
-        """Bind a prior ``reserve`` to ``slot`` and adopt any matched
-        prefix blocks copy-on-write; returns the adopted (prefill-
-        skippable) tokens.  Nothing is allocated and nothing is zeroed:
-        pages never are, and the ported blocks are all attention, with
-        no per-slot recurrent state (the reference zeroes that here)."""
+        """Bind a prior ``reserve`` to ``slot``, zero the slot's
+        recurrent state (every leaf but the page pools: mamba ``h`` /
+        ``conv``, rwkv ``s`` / ``x_prev``, ``cm_x_prev``), and adopt any
+        matched prefix blocks copy-on-write; returns the adopted
+        (prefill-skippable) tokens.  Nothing is allocated, and pages are
+        never zeroed."""
         assert 0 <= slot < self.num_slots
         assert not self._commit[slot], f"slot {slot} not retired"
         self._commit[slot] = self.pages_for(need_tokens)
+        for bname, leaf in self.cache.items():
+            for k, t in leaf.items():
+                if not (bname in self.pools and k in ("k", "v")):
+                    t[:, slot].zero_()
         self.resets += 1
         # prefix=None: reuse off (no accounting); []: a counted miss
         return (self.adopt_prefix(slot, prefix)

@@ -724,3 +724,113 @@ def test_bitmap_kernel_on_corrupted_bitmap_matches_plain(cuda, sparsity, m,
     assert not torch.equal(expect[:, -1], clean[:, -1])
     torch.testing.assert_close(expect[:, :-1], clean[:, :-1])
     torch.cuda.synchronize()
+
+
+# The recurrent mixers on the card: K1 and K1g at the shapes rwkv6-3b and
+# jamba give them (narrow K, BN 80 / 96, BK 4, decay_B's float32 X), the
+# per-stream counter buffers, and the rwkv6 / jamba smoke engines.
+
+SSM_K1_SHAPES = [(2560, 2560), (2560, 160), (2560, 64), (64, 2560),
+                 (2560, 8960), (8960, 2560), (4096, 16384), (8192, 288),
+                 (256, 8192), (8192, 4096), (4, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", SSM_K1_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 64])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_cuda_kernel_at_ssm_shapes(cuda, k, n, m, dname):
+    from repro_torch.serve.packed import choose_block
+    w, x = _case(m, k, n, 0.5, seed=k + n + m)
+    bw = pack_bitmap(torch.from_numpy(w).to(cuda), block=choose_block(k, n))
+    xt = torch.from_numpy(x).to(cuda, TYPES[dname])
+    reset_launches()
+    out = ops.bitmap_spmm(xt, bw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "bitmap_spmm": 1}
+    assert out.dtype == xt.dtype and out.shape == (m, n)
+    expect = ops.bitmap_spmm(xt, bw, impl="torch")
+    tol = 2e-2 if dname == "bfloat16" else 2e-3
+    torch.testing.assert_close(out.float(), expect.float(),
+                               atol=tol * np.sqrt(k), rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 64])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_grouped_kernel_at_mix_b_shape(cuda, m, dname):
+    """rwkv6-3b's mix_B: 5 groups of (32, 2560), BK 32."""
+    w, x = _case(m, 32, 2560, 0.5, seed=m, groups=(5,))
+    bw = pack_bitmap_experts(torch.from_numpy(w[None]).to(cuda),
+                             block=(32, 128)).period(0)
+    xt = torch.from_numpy(x).to(cuda, TYPES[dname])
+    reset_launches()
+    out = ops.bitmap_spmm_grouped(xt, bw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "bitmap_spmm_grouped": 1}
+    expect = ops.bitmap_spmm_grouped(xt, bw, impl="torch")
+    tol = 2e-2 if dname == "bfloat16" else 2e-3
+    torch.testing.assert_close(out.float(), expect.float(),
+                               atol=tol * np.sqrt(32), rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_launches_on_two_streams_equal_serial_launches(cuda):
+    """K1 and K1g calls whose K ranges are split between blocks (their
+    partial sums folded through the counters) launched on two streams at
+    once, many times over: each output is bit-identical to the same call
+    launched alone.  Each stream has its own counter buffer."""
+    calls = []
+    for i, (k, n, g) in enumerate(((8192, 2560, 0), (2560, 8960, 0),
+                                   (1536, 512, 40))):
+        w, x = _case(4, k, n, 0.5, seed=i, groups=(g,) if g else ())
+        w = torch.from_numpy(w).to(cuda)
+        if g:
+            bw = pack_bitmap_experts(w[None], block=(128, 128)).period(0)
+        else:
+            bw = pack_bitmap(w, block=(128, 128))
+        fn = ops.bitmap_spmm_grouped if g else ops.bitmap_spmm
+        calls.append((fn, torch.from_numpy(x).to(cuda, torch.bfloat16), bw))
+    serial = [fn(x, bw) for fn, x, bw in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for rep in range(16):
+        for j, (fn, x, bw) in enumerate(calls):
+            with torch.cuda.stream(streams[(rep + j) % 2]):
+                outs.append((j, fn(x, bw)))
+    torch.cuda.synchronize()
+    for j, out in outs:
+        assert torch.equal(out, serial[j]), j
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_ssm_engine_on_card_goes_through_kernels(cuda, arch):
+    """rwkv6 and jamba smoke on the card: every packed projection
+    launches K1 and every group stack (mix_B, the MoE experts) K1g, once
+    per period per decode step, plus the head; in float32 the tokens
+    equal the CPU engine's on the same weights."""
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    kw = dict(num_slots=4, max_len=48, sparsity=0.5, params=params)
+    cpu = ServeEngine(cfg, device="cpu", **kw)
+    gpu = ServeEngine(cfg, device=cuda, **kw)
+    assert all(bw.dense_cache is None for _, bw in gpu.packed.leaves())
+    layouts = [e.layout for e in gpu.packed.packed_entries]
+    trace = poisson_trace(6, rate=0.8, seed=3, vocab_size=cfg.vocab_size,
+                          prompt_len=(2, 8), max_new=(4, 8))
+    a = [cpu.submit(**s) for s in trace]
+    cpu.run()
+    gpu.warmup()
+    reset_launches()
+    b = [gpu.submit(**s) for s in trace]
+    gpu.run()
+    per = cfg.num_periods
+    assert LAUNCHES == {
+        **NONE,
+        "bitmap_spmm": (per * layouts.count("stacked") + 1)
+        * gpu.decode_steps,
+        "bitmap_spmm_grouped": per * layouts.count("grouped")
+        * gpu.decode_steps}
+    assert [r.tokens for r in a] == [r.tokens for r in b]
