@@ -136,6 +136,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
    does not fit one card at full width): its engine on the contiguous
    cache and paged with recompute-on-preempt on a 48-token pool
    (preemptions required) serve the same tokens.
+8. Training on the card.  (a) olmo-1b at full width (16 layers, d 2048,
+   d_ff 8192, vocab 50304, tied head: 1.18 B parameters), seeded init,
+   ``global_l1_prune(0.5)`` with its masks, remat as configured, AdamW
+   (lr 3e-4, warmup 2, ``total_steps`` 12), batch 4 x seq 512 from
+   ``synth_batch`` (seed 0), 12 steps: 2 warm-up, 8 timed, 2 under
+   ``torch.profiler``.  Every loss and grad norm finite, the first loss
+   within 2.5 of ln(V), every pruned element exactly 0 after every
+   step, the blocks' sparsity >= 0.499 (the embedding is not prunable).
+   It prints the median ms per step, tokens/s, model FLOP/s and MFU
+   against 989 TFLOP/s (6·N·T plus the attention term; the remat
+   recompute apart), the peak memory and the idle share.  No checkpoint
+   of it is written.  (b) olmo-1b, granite-moe-3b-a800m, gemma3-4b,
+   rwkv6-3b and jamba-v0.1-52b at smoke widths: one train step's loss
+   and gradients on the card against the CPU's from the same params
+   (float32; loss within 1e-5 relative, each gradient leaf within
+   1e-4·max|CPU| + 1e-7), then olmo smoke trained 6 steps with a
+   checkpoint at 3, its last checkpoint dropped and the run resumed:
+   bit-equal to an uninterrupted run.  (c) K2 forward against the
+   training path's ``scan_attention`` at (a)'s attention shape (B 4, 16
+   heads, S 512, D 128, causal), bf16 and float32, phase 5's limits;
+   nothing on the training path calls K2.  (d) (a)'s params, its
+   optimizer state freed, packed (``pack_model``, ``pack_lm_head``) and
+   served: 4 requests, prompts from the synthetic stream, budgets 16,
+   walked; every budget served, 113 K1 launches per decode step, no
+   dense copy, one decode step through K1 against the plain step.
 
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
 its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
@@ -147,6 +172,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -689,33 +715,44 @@ def prefill_call_check(eng, gen, chunk: int) -> None:
     agree(logits[None], logits["torch"], "prefill-call logits")
 
 
-def profile_steps(eng, steps: int = 6):
-    """Device busy share of full-batch decode steps (torch.profiler):
-    kernel time summed per name over the steps' wall time.  Returns the
-    device's busy ms per step, or None when the profiler saw no device
-    time."""
+def profile_device(run_fn, steps: int):
+    """Kernels of ``steps`` calls of ``run_fn`` under torch.profiler:
+    ([(name, device us summed over the steps)], wall us of the steps), or
+    None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
-    for i in range(eng.num_slots):
-        eng.submit([1 + i], max_new_tokens=steps + 4, arrival=eng._steps)
-    for _ in range(2):
-        eng.step()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            run_fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-    eng.run()
     kernels = [(e.key, e.self_device_time_total)
                for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")
                and e.self_device_time_total > 0]
-    busy_us = sum(t for _, t in kernels)
-    if not busy_us:
+    if not sum(t for _, t in kernels):
         print("profiler: no device time seen; idle share not measured")
         return None
+    return kernels, wall_us
+
+
+def profile_steps(eng, steps: int = 6):
+    """Device busy share of full-batch decode steps (torch.profiler):
+    kernel time summed per name over the steps' wall time.  Returns the
+    device's busy ms per step, or None when the profiler saw no device
+    time."""
+    for i in range(eng.num_slots):
+        eng.submit([1 + i], max_new_tokens=steps + 4, arrival=eng._steps)
+    for _ in range(2):
+        eng.step()
+    profiled = profile_device(eng.step, steps)
+    eng.run()
+    if profiled is None:
+        return None
+    kernels, wall_us = profiled
+    busy_us = sum(t for _, t in kernels)
     spmm_us = sum(t for k, t in kernels
                   if "bitmap_spmm" in k)
     top = sorted(kernels, key=lambda kt: -kt[1])[:4]
@@ -2073,6 +2110,376 @@ def ssm_phase(rwkv_cfg, jamba_cfg, jamba_smoke, device, gen) -> dict:
             "times": times}
 
 
+# ------------------------------------------------------------ phase 8 -----
+
+TRAIN_ARCHS = ("olmo-1b", "granite-moe-3b-a800m", "gemma3-4b", "rwkv6-3b",
+               "jamba-v0.1-52b")
+TRAIN_LR = 3e-4
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Operations of one train step.  ``model``: 6·N·T for the parameter
+    products (N every parameter, the tied head counted once) plus the
+    attention term 12·L·H·D·S·T (scores and values at full S, forward and
+    backward); ``remat``: what checkpointing recomputes, each period's
+    forward again (2·N·T less the embedding and head, 4·L·H·D·S·T) and
+    each loss chunk's head product (2·D·V·T)."""
+    t = batch * seq
+    n = cfg.param_count()
+    layers = sum(1 for _ in range(cfg.num_periods) for b in cfg.pattern
+                 if b.mixer == "attn")
+    attn = layers * cfg.num_heads * cfg.resolved_head_dim * seq * t
+    head = cfg.d_model * cfg.vocab_size
+    embed = head if cfg.tie_embeddings else 2 * head
+    return {"model": 6 * n * t + 12 * attn,
+            "remat": 2 * (n - embed) * t + 4 * attn + 2 * head * t
+            if cfg.remat else 0}
+
+
+# kernel-name marks of a profile's device time by kind (the first match)
+KERNEL_KINDS = (("gemm", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
+                ("reduction", ("reduce",)),
+                ("elementwise", ("elementwise",)))
+
+
+def profile_train_steps(run_step, steps: int = 2):
+    """Device busy share of ``steps`` calls of ``run_step`` under
+    torch.profiler, with the device time by kind of kernel.  Returns
+    (idle share, busy ms per step), or None when the profiler saw no
+    device time."""
+    profiled = profile_device(run_step, steps)
+    if profiled is None:
+        return None
+    kernels, wall_us = profiled
+    busy_us = sum(t for _, t in kernels)
+    by_kind: dict = {}
+    for name, t in kernels:
+        kind = next((kind for kind, marks in KERNEL_KINDS
+                     if any(m in name.lower() for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + t
+    top = sorted(kernels, key=lambda kt: -kt[1])[:5]
+    print(f"profiler, {steps} train steps: {wall_us / steps / 1e3:.2f} ms "
+          f"per step, device busy {busy_us / steps / 1e3:.2f} ms (idle "
+          f"{100 * (1 - busy_us / wall_us):.1f}%) | by kind: "
+          + ", ".join(f"{k} {t / steps / 1e3:.2f} ms" for k, t in sorted(
+              by_kind.items(), key=lambda kt: -kt[1]))
+          + " | top: "
+          + ", ".join(f"{k[:40]} {t / steps / 1e3:.2f} ms" for k, t in top))
+    return 1 - busy_us / wall_us, busy_us / steps / 1e3
+
+
+def median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def train_full_width(cfg, device, steps: int = 12, warm: int = 2,
+                     profiled: int = 2, batch: int = 4, seq: int = 512,
+                     long_seq: int = 2048, long_steps: int = 4,
+                     smi: str = ""):
+    """Phase 8a: ``cfg`` at full width trained on the card: seeded init,
+    ``global_l1_prune(0.5)`` with its masks, AdamW (lr 3e-4, warmup 2,
+    ``total_steps`` the steps run), remat as configured, batches of
+    ``synth_batch`` (seed 0).  Steps at ``batch`` x ``seq``: ``warm``
+    untimed, then timed ones (the median is theirs), then ``profiled``
+    ones under torch.profiler; forward + backward alone timed at that
+    batch, so the rest of the step (the mask products and AdamW, a cost
+    per parameter) is read apart.  Then ``long_steps`` more at the
+    published sequence length ``long_seq`` (the first untimed), the same
+    reading taken.  Every loss and grad norm finite, the first loss
+    within 2.5 of ln(V), every pruned element exactly 0 after every step,
+    the blocks' sparsity >= 0.499.  Returns (params, masks, record)."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import init_params
+    from repro_torch.sparse.pruning import (global_l1_prune, sparsity_of,
+                                            tree_items, tree_map)
+    from repro_torch.train import optimizer as opt_lib
+    t0 = time.perf_counter()
+    # free what earlier phases dropped but a reference cycle still holds,
+    # so that no collection during training moves the baseline below
+    gc.collect()
+    held = torch.cuda.memory_allocated()     # by what earlier phases keep
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = global_l1_prune(init_params(gen, cfg, device=device), 0.5)
+    masks = tree_map(lambda _, p: p != 0, params)
+    # the embedding (and so the tied head) is not prunable: the blocks'
+    # matrices carry the 0.5, ``sparsity_of`` over all of them less
+    sparsity = sparsity_of(params["blocks"])
+    assert sparsity >= 0.499, sparsity
+    opt_state = opt_lib.init(params)
+    step_fn = build_train_step(
+        cfg, opt_lib.OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                               total_steps=steps + long_steps),
+        prune_masks=masks)
+    batches = [to_device(synth_batch(cfg, DataConfig(
+        global_batch=batch, seq_len=s_, seed=0), i), device)
+        for i, s_ in enumerate([seq] * steps + [long_seq] * long_steps)]
+    sync()
+    print(f"{cfg.name} training at full width: {cfg.param_count() / 1e9:.3f}"
+          f" B parameters, init + prune {time.perf_counter() - t0:.1f}s, "
+          f"sparsity of the blocks {sparsity:.4f}, remat {cfg.remat}, "
+          f"{steps} steps ({warm} warm-up) at batch {batch} x seq {seq}, "
+          f"then {long_steps} (1 warm-up) at batch {batch} x seq {long_seq}")
+    state = {"params": params, "opt": opt_state, "i": 0}
+    losses, gnorms = [], []
+
+    def run_step():
+        i = state["i"]
+        state["params"], state["opt"], m = step_fn(
+            state["params"], state["opt"], batches[i])
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        state["i"] = i + 1
+
+    flat_masks = dict(tree_items(masks))
+
+    def check_masks():
+        for path, leaf in tree_items(state["params"]):
+            assert not bool(leaf.masked_select(~flat_masks[path]).any()), \
+                path
+
+    def timed_steps(n):
+        times = []
+        for _ in range(n):
+            sync()
+            t = time.perf_counter()
+            run_step()
+            sync()
+            times.append(time.perf_counter() - t)
+            check_masks()
+        return times
+
+    def reading(times, s_, first):
+        """The timed steps at ``batch`` x ``s_`` against forward +
+        backward alone on batch ``first``."""
+        ms = 1e3 * median(times)
+        fwd_bwd = time_ms(lambda: loss_and_grads(
+            state["params"], batches[first], cfg), 1)
+        flops = train_flops(cfg, batch, s_)
+        return {"ms_per_step": ms, "tokens_per_s": batch * s_ / ms * 1e3,
+                "model_tflops": flops["model"] / ms / 1e9,
+                "mfu": flops["model"] / (ms * 1e-3) / BF16_FLOPS_PER_S,
+                "hardware_tflops": (flops["model"] + flops["remat"])
+                / ms / 1e9,
+                "fwd_bwd_ms": fwd_bwd,
+                "update_share": max(ms - fwd_bwd, 0.0) / ms,
+                "timed_steps": len(times),
+                "range_ms": [1e3 * min(times), 1e3 * max(times)],
+                "flops": flops,
+                "max_memory_gib": (torch.cuda.max_memory_allocated()
+                                   - held) / 2**30}
+
+    def show(r, s_):
+        f = r["flops"]
+        print(f"{cfg.name} train step at batch {batch} x seq {s_} on {smi}:"
+              f" median {r['ms_per_step']:.2f} ms over {r['timed_steps']} "
+              f"steps (range {r['range_ms'][0]:.2f}-{r['range_ms'][1]:.2f})"
+              f" | {r['tokens_per_s']:.0f} tokens/s | model "
+              f"{f['model'] / 1e12:.2f} TFLOP per step (6·N·T + attention) "
+              f"= {r['model_tflops']:.1f} TFLOP/s, MFU "
+              f"{100 * r['mfu']:.1f}% of {BF16_FLOPS_PER_S / 1e12:.0f} | "
+              f"with the remat recompute ({f['remat'] / 1e12:.2f} TFLOP) "
+              f"{r['hardware_tflops']:.1f} TFLOP/s | forward + backward "
+              f"alone {r['fwd_bwd_ms']:.2f} ms, the rest (mask products, "
+              f"AdamW) {100 * r['update_share']:.1f}% of the step | max "
+              f"memory allocated {r['max_memory_gib']:.2f} GiB by training "
+              f"({held / 2**30:.2f} GiB more held before it)")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = timed_steps(steps - profiled)
+    profiled_ = profile_train_steps(run_step, profiled)
+    idle, busy_ms = profiled_ if profiled_ else (None, None)
+    check_masks()
+    rec = reading(times[warm:], seq, 0)
+    torch.cuda.reset_peak_memory_stats()
+    long_times = timed_steps(long_steps)
+    rec["long_seq"] = {"seq": long_seq, **reading(long_times[1:], long_seq,
+                                                 steps)}
+    assert all(math.isfinite(v) for v in losses + gnorms), (losses, gnorms)
+    assert abs(losses[0] - math.log(cfg.vocab_size)) <= 2.5, losses[0]
+    sparsity = sparsity_of(state["params"]["blocks"])
+    assert sparsity >= 0.499, sparsity
+    overall = sparsity_of(state["params"])
+    rec.update({"idle_share": idle, "busy_ms_per_step": busy_ms,
+                "losses": losses, "grad_norms": gnorms,
+                "sparsity_blocks": sparsity, "sparsity_all": overall})
+    show(rec, seq)
+    print("  idle share " + (
+        "not measured" if idle is None else
+        f"{100 * idle:.1f}% profiled (device busy {busy_ms:.2f} ms per "
+        f"step: {100 * busy_ms / rec['ms_per_step']:.1f}% of the "
+        f"unprofiled median)"))
+    show(rec["long_seq"], long_seq)
+    print(f"  losses {', '.join(f'{v:.4f}' for v in losses)} (ln V "
+          f"{math.log(cfg.vocab_size):.4f}); grad norms "
+          f"{', '.join(f'{v:.3f}' for v in gnorms)}; pruned elements 0 "
+          f"after every step; sparsity of the blocks {sparsity:.4f}, of "
+          f"every matrix (the unpruned embedding too) {overall:.4f}")
+    return state["params"], masks, rec
+
+
+def train_parity(device, batch: int = 2, seq: int = 16) -> None:
+    """Phase 8b: each arch at smoke widths, float32: one train step's
+    loss and gradients on the card against the CPU's from the same params
+    and batch (loss within 1e-5 relative; each leaf's gradient within
+    1e-4·max|CPU| + 1e-7), then a whole train step on the card, finite."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import init_params
+    from repro_torch.sparse.pruning import tree_items, tree_map
+    from repro_torch.train import optimizer as opt_lib
+    cpu = torch.device("cpu")
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        params = init_params(torch.Generator().manual_seed(0), cfg,
+                             device=cpu)
+        batch_np = synth_batch(cfg, DataConfig(batch, seq), 0)
+        want = loss_and_grads(params, to_device(batch_np, cpu), cfg)
+        on_card = tree_map(lambda _, t: t.to(device), params)
+        got = loss_and_grads(on_card, to_device(batch_np, device), cfg)
+        sync()
+        rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        assert rel <= 1e-5, (arch, float(got[0]), float(want[0]))
+        used = 0.0
+        for (path, g), (_, w) in zip(tree_items(got[2]),
+                                     tree_items(want[2])):
+            diff = (g.cpu() - w).abs().max().item()
+            limit = 1e-4 * w.abs().max().item() + 1e-7
+            assert diff <= limit, (arch, path, diff, limit)
+            used = max(used, diff / limit)
+        state = opt_lib.init(on_card)
+        on_card, state, m = build_train_step(cfg, opt_lib.OptConfig(
+            lr=1e-3, warmup_steps=1, total_steps=10))(
+            on_card, state, to_device(batch_np, device))
+        assert all(bool(torch.isfinite(t).all())
+                   for _, t in tree_items(on_card))
+        print(f"  {cfg.name} train step, card against CPU (float32): loss "
+              f"{float(got[0]):.6f} vs {float(want[0]):.6f} (rel "
+              f"{rel:.2g}, limit 1e-5); gradients within {used:.3g} of "
+              f"the limit over {len(tree_items(want[2]))} leaves; step "
+              f"grad norm {float(m['grad_norm']):.4f}")
+
+
+def resume_on_card(device, steps: int = 6, cut: int = 3) -> None:
+    """Phase 8b: olmo smoke trained ``steps`` steps with checkpoints
+    every ``cut``, its last checkpoint dropped (a crash after step
+    ``cut``), then resumed: params and optimizer state equal an
+    uninterrupted run's bit for bit."""
+    import shutil
+    from repro_torch.launch.train import train
+    from repro_torch.sparse.pruning import tree_items
+    from repro_torch.train import checkpoint as ckpt
+    kw = dict(smoke=True, steps=steps, batch=4, seq=32, device=device,
+              log_every=steps)
+    whole = train("olmo-1b", **kw)
+    with tempfile.TemporaryDirectory() as d:
+        train("olmo-1b", ckpt_dir=d, ckpt_every=cut, **kw)
+        assert sorted(ckpt.completed_steps(d)) == [cut, steps]
+        shutil.rmtree(f"{d}/step_{steps}")
+        res = train("olmo-1b", ckpt_dir=d, ckpt_every=cut, **kw)
+    assert len(res["losses"]) == steps - cut
+    assert res["losses"] == whole["losses"][cut:], (res["losses"],
+                                                   whole["losses"])
+    for (path, a), (_, b) in zip(tree_items(whole["params"]),
+                                 tree_items(res["params"])):
+        assert torch.equal(a, b), path
+    print(f"  olmo-1b smoke on the card: {steps} steps cut after {cut}, "
+          f"restored and resumed equal the uninterrupted run bit for bit "
+          f"(losses {', '.join(f'{v:.4f}' for v in res['losses'])})")
+
+
+def k2_against_scan_attention(cfg, device, gen, batch: int = 4,
+                              seq: int = 512) -> None:
+    """Phase 8c: K2 forward against the training path's ``scan_attention``
+    at phase 8a's attention shape (B, heads, S, D causal), bf16 and
+    float32, q/k/v moved to K2's (B, H, S, D); phase 5's limits, the
+    zero-output check included; then both timed in bf16.  Nothing on the
+    training path calls K2."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import scan_attention
+    h, d = cfg.num_heads, cfg.resolved_head_dim
+    pos = torch.arange(seq, device=device).expand(batch, seq)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(batch, seq, n, d, generator=gen,
+                               device=device).to(dt)
+                   for n in (h, cfg.num_kv_heads, cfg.num_kv_heads))
+        ref = scan_attention(q, k, v, pos)
+        out = ops.flash_attention(*(t.transpose(1, 2).contiguous()
+                                    for t in (q, k, v))).transpose(1, 2)
+        sync()
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        rms = ref.float().square().mean(-1, keepdim=True).sqrt()
+        name = (f"K2 against scan_attention {tuple(q.shape)} causal {dt}")
+        err, used, zero = scaled_compare(name, out, ref, ATTN_ATOL[dt], rms)
+        line = (f"  {name}: max |K2 - scan_attention| {err:.3g}, {used:.3g}"
+                f" of the limit; a zero output fails at {100 * zero:.1f}% "
+                f"of the non-zero elements")
+        if dt == torch.bfloat16:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            t_k = time_ms(lambda: ops.flash_attention(qt, kt, vt), 20)
+            t_s = time_ms(lambda: scan_attention(q, k, v, pos), 5)
+            line += (f" | forward: K2 {t_k:.4f} ms, scan_attention "
+                     f"{t_s:.4f} ms (eager)")
+        print(line)
+
+
+def serve_trained(cfg, params, device, gen, n: int = 4, budget: int = 16,
+                  prompt: int = 8) -> dict:
+    """Phase 8d: the params phase 8a trained (pruned by their masks)
+    packed by ``pack_model`` / ``pack_lm_head`` and served: ``n``
+    requests whose prompts come from the synthetic stream, budgets
+    ``budget``, walked.  Every request served its whole budget, K1's
+    launches per decode step as ``per_step`` says (113 for olmo-1b), no
+    dense copy of a packed weight, one decode step through K1 against
+    the plain step.  Returns K1's path record."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, num_slots=n, max_len=256, sparsity=0.0,
+                      params=params, device=device)
+    assert_no_dense_copy(eng)
+    if cfg.name == "olmo-1b":
+        assert per_step(eng) == {"bitmap_spmm": 113,
+                                 "bitmap_spmm_grouped": 0}, per_step(eng)
+    tokens = synth_batch(cfg, DataConfig(n, prompt, seed=0), 10_000)[
+        "tokens"]
+    trace = [{"prompt": [int(t) for t in row], "max_new_tokens": budget,
+              "arrival": 0.0} for row in tokens]
+    rep = serve(eng, trace, f"{cfg.name} as trained, packed")
+    path = check_counts(eng, rep, f"{cfg.name} trained in phase 8a, "
+                                  f"prompt walk")
+    decode_step_check(eng, gen)
+    return path["bitmap_spmm"]
+
+
+def training_phase(cfg, device, gen, smi: str, **sizes) -> dict:
+    """Phase 8: training on the card.  Returns 8a's record and 8d's K1
+    path record."""
+    t0 = time.perf_counter()
+    params, masks, rec = train_full_width(cfg, device, smi=smi, **sizes)
+    del masks
+    torch.cuda.empty_cache()
+    t0 = phase(f"phase 8a, {cfg.name} trained at full width", t0)
+    train_parity(device)
+    resume_on_card(device)
+    t0 = phase("phase 8b, every arch at smoke widths against the CPU; "
+               "resume", t0)
+    k2_against_scan_attention(cfg, device, gen,
+                              batch=sizes.get("batch", 4),
+                              seq=sizes.get("seq", 512))
+    t0 = phase("phase 8c, K2 against scan_attention", t0)
+    path = serve_trained(cfg, params, device, gen)
+    del params
+    torch.cuda.empty_cache()
+    phase(f"phase 8d, {cfg.name} as trained, served through K1", t0)
+    return {"train": rec, "bitmap_spmm": path}
+
+
 def phase(label: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[{label}: {now - t0:.1f}s]")
@@ -2084,8 +2491,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         expert_shapes=GRANITE_EXPERT_SHAPES, attn=None,
         rows=MATMUL_ROWS, timed_rows=(4, 2048), rwkv_cfg=None,
         jamba_cfg=None, jamba_smoke=None, ssm_shapes=SSM_SHAPES,
-        mix_b_shapes=MIX_B_SHAPES) -> dict:
-    """Phases 2-7; returns the kernels record.  A kernel's ``launches``
+        mix_b_shapes=MIX_B_SHAPES, smi: str = "") -> dict:
+    """Phases 2-8; returns the kernels record.  A kernel's ``launches``
     sums its ``paths`` (each path's run with the counts set to 0 just
     before it).  K1's and K1g's ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are one decode step's calls at M = 4; K2's are
@@ -2140,7 +2547,12 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
 
     ssm = ssm_phase(rwkv_cfg, jamba_cfg, jamba_smoke, device, gen)
     torch.cuda.empty_cache()
-    phase("phase 7, the recurrent mixers", t)
+    t = phase("phase 7, the recurrent mixers", t)
+
+    trained = training_phase(olmo_cfg, device, gen, smi)
+    print(f"phase 8a record ({smi}): "
+          f"{json.dumps(trained['train'])}")
+    phase("phase 8, training on the card", t)
 
     def record(name, paths, times, scope, **extra):
         ms, plain_ms, b_ms, by, lib_ms = times
@@ -2153,7 +2565,7 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
 
     k1_paths = ([p["bitmap_spmm"] for p in olmo_paths] + [chaos_path]
                 + [p["bitmap_spmm"] for p in granite_paths]
-                + ssm["bitmap_spmm"])
+                + ssm["bitmap_spmm"] + [trained["bitmap_spmm"]])
     k1g_paths = ([p["bitmap_spmm_grouped"] for p in granite_paths]
                  + ssm["bitmap_spmm_grouped"])
     g1 = g_times["bitmap_spmm"]
@@ -2209,7 +2621,7 @@ def main() -> int:
                  get_config("gemma3-4b"), torch.device("cuda"), gen,
                  rwkv_cfg=get_config("rwkv6-3b"),
                  jamba_cfg=get_config("jamba-v0.1-52b"),
-                 jamba_smoke=get_smoke_config("jamba-v0.1-52b"))
+                 jamba_smoke=get_smoke_config("jamba-v0.1-52b"), smi=smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s"
           f" on {smi} (the kernels line: launches over the main-path runs; "
           f"times per decode step for K1 and K1g, per call for K2-K4)")

@@ -1,19 +1,113 @@
-"""The serving steps: the decode step (model step + LM head + token
-choice) and the chunked-prefill call.
+"""Step-function builders: train, eval, prefill logits, serve (decode)
+and the chunked-prefill call.
 
-Port of ``repro/launch/steps.py:build_serve_step`` and
-``build_prefill_step``.  Greedy argmax by default; slots with a
-temperature above 0 sample from ``softmax(logits / T)``, optionally
-truncated to their own top-k.
+Port of ``repro/launch/steps.py`` on one device.  The train step is
+forward, backward through ``torch.autograd.grad`` and an in-place AdamW
+update, with masked-gradient sparse training and gradient accumulation.
+The serve step is greedy argmax by default; slots with a temperature
+above 0 sample from ``softmax(logits / T)``, optionally truncated to
+their own top-k.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step, prefill_hidden
+from repro_torch.models.model import (decode_step, forward, lm_head_weight,
+                                      loss_fn, prefill_hidden)
+from repro_torch.sparse.pruning import tree_items, tree_map
+from repro_torch.train import optimizer as opt_lib
+
+
+def loss_and_grads(params: Dict, batch: Dict, cfg: ModelConfig):
+    """(loss, metrics, grads) of ``loss_fn`` at ``params``; the grads a
+    dict shaped as ``params``, in the params' dtype, zero for leaves the
+    loss does not read (as ``jax.grad`` gives)."""
+    leaves = tree_items(params)
+    with torch.enable_grad():
+        live = {p: l.detach().requires_grad_(True) for p, l in leaves}
+        loss, metrics = loss_fn(tree_map(lambda p, _: live[p], params),
+                                batch, cfg)
+        # a leaf the arch never reads (olmo's norm scales) gets zeros
+        grads = torch.autograd.grad(loss, list(live.values()),
+                                    materialize_grads=True)
+    flat = dict(zip(live, grads))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_map(lambda p, _: flat[p], params)
+
+
+def build_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
+                     prune_masks: Optional[Dict] = None,
+                     accum_steps: int = 1) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics), the
+    update written into ``params`` and ``opt_state`` in place.
+
+    ``prune_masks`` (a tree shaped as params, bool or 0/1) multiplies the
+    gradients before the update and the parameters after it, so pruned
+    weights stay exactly zero (masked-gradient sparse training).
+    ``accum_steps`` > 1 splits the batch into that many equal
+    microbatches (consecutive rows), sums their float32 gradients and
+    divides by the count; the loss is the token-weighted mean.  Metrics:
+    ``loss``, ``tokens``, ``grad_norm``, ``lr`` (tensors on the device).
+    """
+
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            _, metrics, grads = loss_and_grads(params, batch, cfg)
+        else:
+            gsum, lsum, csum = {}, 0, 0
+            for i in range(accum_steps):
+                micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
+                                      *v.shape[1:])[i]
+                         for k, v in batch.items()}
+                _, m, g = loss_and_grads(params, micro, cfg)
+                for p, t in tree_items(g):
+                    gsum[p] = t.float() + gsum.get(p, 0)
+                lsum = lsum + m["loss"] * m["tokens"]
+                csum = csum + m["tokens"]
+            grads = tree_map(lambda p, _: gsum[p] / accum_steps, params)
+            metrics = {"loss": lsum / csum.clamp_min(1), "tokens": csum}
+        if prune_masks is not None:
+            masks = dict(tree_items(prune_masks))
+            with torch.no_grad():                # the grads are this step's
+                for p, g in tree_items(grads):
+                    g.mul_(masks[p])
+        params, opt_state, opt_metrics = opt_lib.update(params, grads,
+                                                        opt_state, opt_cfg)
+        if prune_masks is not None:
+            with torch.no_grad():
+                for p, leaf in tree_items(params):
+                    leaf.mul_(masks[p])
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def build_eval_step(cfg: ModelConfig) -> Callable:
+    """(params, batch) -> ``loss_fn``'s metrics, without gradients."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = loss_fn(params, batch, cfg)
+        return metrics
+    return eval_step
+
+
+def build_prefill_logits_step(cfg: ModelConfig) -> Callable:
+    """Forward over the full prompt; returns the last position's float32
+    logits (B, V).  No KV is written: the serving engine's cache-writing
+    prefill is ``build_prefill_step``."""
+
+    @torch.no_grad()
+    def prefill_logits_step(params, batch):
+        hidden = forward(params, cfg, tokens=batch.get("tokens"),
+                         embeds=batch.get("embeds"))
+        w = lm_head_weight(params, cfg).to(hidden.dtype)
+        return (hidden[:, -1] @ w).float()
+
+    return prefill_logits_step
 
 
 def gumbel_noise(seed: int, pos: int, vocab: int) -> torch.Tensor:

@@ -73,6 +73,79 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def _online_block(carry, kc, vc, q, q_pos, k_pos, window, scale):
+    """One online-softmax step over a KV chunk.  q: (B, Hkv, Sq, D)
+    float32; kc, vc: (B, Hkv, C, D) float32; q_pos (B, Sq), k_pos (B, C)."""
+    m_prev, l_prev, acc = carry
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kc) * scale
+    mask = q_pos[:, None, :, None] >= k_pos[:, None, None, :]
+    if window is not None:
+        mask = mask & ((q_pos[:, None, :, None] - k_pos[:, None, None, :])
+                       < window)
+    s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
+    m_new = torch.maximum(m_prev, s.amax(-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    alpha = torch.exp(m_prev - m_new)
+    l_new = alpha * l_prev + p.sum(-1, keepdim=True)
+    acc_new = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p, vc)
+    return m_new, l_new, acc_new
+
+
+def scan_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, *, window: Optional[int] = None,
+                   q_chunk: int = 2048, kv_chunk: int = 512) -> torch.Tensor:
+    """Causal flash-style attention in plain torch (the training path's
+    attention; differentiable).  q: (B, S, Hq, D); k, v: (B, S, Hkv, D);
+    positions: (B, S).
+
+    The reference's algorithm step for step: GQA folded into the query
+    sequence (s-major) so KV is never repeated; a loop over query chunks,
+    each over only its causally reachable KV chunks (from ``kv_lo`` under
+    a window), the tail chunk zero-padded; ``-1e30`` masks; scores,
+    softmax state and accumulators in float32; ``acc / max(l, 1e-30)``.
+    """
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, s)
+    qh = (q.reshape(b, s, hkv, g, d).permute(0, 2, 1, 3, 4)
+          .reshape(b, hkv, s * g, d).float())
+    kh = k.transpose(1, 2).float()                       # (B, Hkv, S, D)
+    vh = v.transpose(1, 2).float()
+
+    outs = []
+    for q0 in range(0, s, q_chunk):
+        q1 = min(q0 + q_chunk, s)
+        qc = qh[:, :, q0 * g:q1 * g]
+        qp = positions[:, q0:q1].repeat_interleave(g, dim=1)
+        kv_lo = (max(0, (q0 - window + 1) // kv_chunk * kv_chunk)
+                 if window is not None else 0)
+        n_kv = -(-(q1 - kv_lo) // kv_chunk)
+        kv_len = n_kv * kv_chunk
+        kc = kh[:, :, kv_lo:kv_lo + kv_len]
+        vc = vh[:, :, kv_lo:kv_lo + kv_len]
+        if kc.shape[2] < kv_len:                         # pad the tail chunk
+            pad = (0, 0, 0, kv_len - kc.shape[2])
+            kc, vc = F.pad(kc, pad), F.pad(vc, pad)
+        kp = kv_lo + torch.arange(kv_len, device=q.device)
+        qn = (q1 - q0) * g
+        carry = (torch.full((b, hkv, qn, 1), -1e30, device=q.device),
+                 torch.zeros((b, hkv, qn, 1), device=q.device),
+                 torch.zeros((b, hkv, qn, d), device=q.device))
+        for c0 in range(0, kv_len, kv_chunk):
+            sl = slice(c0, c0 + kv_chunk)
+            carry = _online_block(carry, kc[:, :, sl], vc[:, :, sl], qc, qp,
+                                  kp[sl].expand(b, kv_chunk), window, scale)
+        _, l, acc = carry
+        outs.append(acc / l.clamp_min(1e-30))
+    out = torch.cat(outs, dim=2)                         # (B, Hkv, S·g, D)
+    out = (out.reshape(b, hkv, s, g, d).permute(0, 2, 1, 3, 4)
+           .reshape(b, s, hq, d))
+    return out.to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      window: Optional[int] = None,

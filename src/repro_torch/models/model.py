@@ -1,16 +1,22 @@
-"""Decoder LM on the decode path: shapes, init, cache, decode step.
+"""Decoder LM: shapes, init, full-sequence forward and loss, cache, decode.
 
-Port of the decode-path parts of ``repro/models/model.py``.  Parameters
-are a nested dict of tensors with the reference's path names, block
-leaves stacked over periods (leading dim P).  The reference's
-``lax.scan`` over periods becomes a Python loop over the period index;
-the cache is updated in place.  Attention mixers with MLP, MoE (or no)
-FFNs run on the decode path and chunked prefill, over the contiguous
-cache or the paged one (page pools read and written through per-slot
-page tables, ``serve/paging.py``).  Mamba and RWKV6 mixers and the RWKV
-channel-mix (``models/ssm.py``) run on the decode path, their state
-slotted beside the KV cache; chunked prefill has no path for them and
-raises, as the reference's does.
+Port of ``repro/models/model.py``.  Parameters are a nested dict of
+tensors with the reference's path names, block leaves stacked over
+periods (leading dim P).  The reference's ``lax.scan`` over periods
+becomes a Python loop over the period index.
+
+Training: ``forward`` runs the full sequence (``scan_attention``, the
+full-sequence mixers, MoE at per-row capacity) with each period under
+``torch.utils.checkpoint`` when ``cfg.remat``; ``lm_loss`` is the
+sequence-chunked cross entropy, each chunk checkpointed so its (B,
+chunk, V) logits are not kept.  Serving: the decode step and chunked
+prefill update the cache in place; attention mixers with MLP, MoE (or
+no) FFNs run on both, over the contiguous cache or the paged one (page
+pools read and written through per-slot page tables,
+``serve/paging.py``).  Mamba and RWKV6 mixers and the RWKV channel-mix
+(``models/ssm.py``) run on the decode path, their state slotted beside
+the KV cache; chunked prefill has no path for them and raises, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -173,10 +180,144 @@ def embed_inputs(params: Dict, cfg: ModelConfig,
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+# ------------------------------------------------------------ forward ------
+
+
+def _apply_attn(p: Dict, x: torch.Tensor, cfg: ModelConfig, blk: BlockCfg,
+                positions: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    dt_ = x.dtype
+    xn = L.norm(x, p.get("norm"), cfg.norm)
+    q = (xn @ p["wq"].to(dt_)).reshape(b, s, h, hd)
+    k = (xn @ p["wk"].to(dt_)).reshape(b, s, kv, hd)
+    v = (xn @ p["wv"].to(dt_)).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = L.norm(q, p["q_norm"], "rmsnorm")
+        k = L.norm(k, p["k_norm"], "rmsnorm")
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    o = L.scan_attention(q, k, v, positions, window=blk.window)
+    return o.reshape(b, s, h * hd) @ p["wo"].to(dt_)
+
+
+def _apply_block(bp: Dict, x: torch.Tensor, blk: BlockCfg, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One block over the full sequence: x + mixer, then x + FFN.  MoE
+    routes each batch row on its own at capacity ``int(S·k·cf/E) + 1``."""
+    if blk.mixer == "attn":
+        x = x + _apply_attn(bp["attn"], x, cfg, blk, positions)
+    elif blk.mixer == "mamba":
+        xn = L.norm(x, bp["mamba"].get("norm"), cfg.norm)
+        x = x + ssm.mamba_mix(bp["mamba"], xn, cfg)
+    elif blk.mixer == "rwkv":
+        xn = L.norm(x, bp["rwkv"].get("norm"), cfg.norm)
+        x = x + ssm.rwkv_mix(bp["rwkv"], xn, cfg)
+
+    if blk.ffn == "mlp":
+        xn = L.norm(x, bp["mlp"].get("norm"), cfg.norm)
+        x = x + L.mlp(bp["mlp"], xn, cfg)
+    elif blk.ffn == "moe":
+        xn = L.norm(x, bp["moe"].get("norm"), cfg.norm)
+        x = x + L.moe_ffn(bp["moe"], xn, cfg)
+    elif blk.ffn == "rwkv_cm":
+        xn = L.norm(x, bp["rwkv_cm"].get("norm"), cfg.norm)
+        x = x + ssm.rwkv_channel_mix(bp["rwkv_cm"], xn)
+    return x
+
+
+def _unbind_periods(tree: Dict) -> list:
+    """The P per-period trees of a period-stacked tree, one ``unbind``
+    per leaf: the backward pass stacks the P slices' gradients once,
+    where indexing each period would make a zero-filled gradient of the
+    whole stacked leaf per period and sum the P of them."""
+    if isinstance(tree, dict):
+        subs = {k: _unbind_periods(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def forward(params: Dict, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Final hidden states (B, S, D) after the final norm.
+
+    Each period takes its slice of the period-stacked leaves
+    (``_unbind_periods``), so gradients flow into the stacked leaf.  With
+    ``cfg.remat`` each period runs under a non-reentrant ``checkpoint``
+    and only its input is kept for the backward pass, as the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``."""
+    x = embed_inputs(params, cfg, tokens, embeds)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    periods = _unbind_periods(params["blocks"])
+
+    def period_fn(x, per):
+        for i, blk in enumerate(cfg.pattern):
+            x = _apply_block(periods[per][f"b{i}"], x, blk, cfg, positions)
+        return x
+
+    for per in range(cfg.num_periods):
+        x = (checkpoint(period_fn, x, per, use_reentrant=False)
+             if cfg.remat else period_fn(x, per))
+    return L.norm(x, params.get("final_norm"), cfg.norm)
+
+# --------------------------------------------------------------- loss ------
+
+
 def lm_head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+def lm_loss(params: Dict, hidden: torch.Tensor, targets: torch.Tensor,
+            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """Sequence-chunked cross entropy.  hidden: (B, S, D); targets: (B,
+    S), -1 = masked.  The head product, optional ``logit_softcap``,
+    logsumexp and the target logit run one ``cfg.loss_chunk`` of the
+    sequence at a time (the tail padded with target -1), each chunk
+    under a ``checkpoint`` so only its inputs are kept, never its (B,
+    chunk, V) float32 logits.  Returns (token-mean loss, {"loss",
+    "tokens"})."""
+    b, s, _ = hidden.shape
+    w = lm_head_weight(params, cfg).to(hidden.dtype)
+    chunk = min(cfg.loss_chunk, s)
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad), value=-1)
+
+    def chunk_loss(h, t):
+        logits = (h @ w).float()                          # (B, c, V)
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(
+                logits / cfg.logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        tl = logits.gather(-1, t.clamp_min(0)[..., None].long())[..., 0]
+        mask = (t >= 0).float()
+        return ((lse - tl) * mask).sum(), mask.sum()
+
+    loss_sum = torch.zeros((), device=hidden.device)
+    count = torch.zeros((), device=hidden.device)
+    for c0 in range(0, n_chunks * chunk, chunk):
+        ls, m = checkpoint(chunk_loss, hidden[:, c0:c0 + chunk],
+                           targets[:, c0:c0 + chunk], use_reentrant=False)
+        loss_sum, count = loss_sum + ls, count + m
+    loss = loss_sum / count.clamp_min(1)
+    return loss, {"loss": loss, "tokens": count}
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict]:
+    hidden = forward(params, cfg, tokens=batch.get("tokens"),
+                     embeds=batch.get("embeds"))
+    return lm_loss(params, hidden, batch["targets"], cfg)
 
 # ------------------------------------------------------------- decode ------
 

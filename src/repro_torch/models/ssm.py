@@ -1,20 +1,20 @@
-"""State-space mixers on the decode path: Mamba (jamba) and RWKV6.
+"""State-space mixers: Mamba (jamba) and RWKV6, full-sequence and decode.
 
-Port of the single-step functions of ``repro/models/ssm.py``:
-``mamba_decode``, ``rwkv_decode`` and the RWKV channel-mix.  Every
-projection goes through ``layers.matmul_or_bitmap`` (``packed`` maps its
-name to a ``BitmapWeight``, so on the card it is K1), and RWKV6's 5-way
-lerp stack ``mix_B`` through ``ops.bitmap_spmm_grouped`` (K1g).  The
-recurrences are elementwise and small contractions, plain torch ops as
-the reference's are plain ``jnp``.  The cast order is the reference's:
-the states ``h`` and ``s`` and the recurrences in float32, activations
-in the compute type.
+Port of ``repro/models/ssm.py``.  The single-step functions
+(``mamba_decode``, ``rwkv_decode`` and the RWKV channel-mix at decode)
+serve: every projection goes through ``layers.matmul_or_bitmap``
+(``packed`` maps its name to a ``BitmapWeight``, so on the card it is
+K1), and RWKV6's 5-way lerp stack ``mix_B`` through
+``ops.bitmap_spmm_grouped`` (K1g).  The full-sequence ``mamba_mix`` and
+``rwkv_mix`` are the training path: dense, differentiable, and written
+without in-place writes.  The recurrences are elementwise and small
+contractions, plain torch ops as the reference's are plain ``jnp``.
+The cast order is the reference's: the states ``h`` and ``s`` and the
+recurrences in float32, activations in the compute type.
 
-Each function returns its new state as new tensors and leaves the one
-it was given as it was; ``model.decode_hidden`` writes the new state
-into the cache in place once every read of the old one is done.  The
-full-sequence ``*_mix`` forwards are the training path and are not
-ported here.
+Each decode function returns its new state as new tensors and leaves
+the one it was given as it was; ``model.decode_hidden`` writes the new
+state into the cache in place once every read of the old one is done.
 """
 from __future__ import annotations
 
@@ -34,6 +34,67 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 # ---------------------------------------------------------------- Mamba ----
+
+
+def _ssm_chunk(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + bx_t over axis 1.  a, bx: (B, C, dI, N); h0:
+    (B, dI, N).  Returns (h_all, h_last).
+
+    An inclusive scan of the affine maps (a, b) by doubling
+    (Hillis-Steele): after the step with offset o each position holds the
+    composition of the (up to) 2·o maps ending there.  The reference's
+    ``associative_scan`` composes the same maps in another tree: equal in
+    real arithmetic, float32 rounding apart."""
+    c = a.shape[1]
+    off = 1
+    while off < c:
+        a_prev = F.pad(a[:, :-off], (0, 0, 0, 0, off, 0), value=1.0)
+        b_prev = F.pad(bx[:, :-off], (0, 0, 0, 0, off, 0))
+        a, bx = a_prev * a, b_prev * a + bx
+        off *= 2
+    h = a * h0[:, None] + bx
+    return h, h[:, -1]
+
+
+def mamba_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+              chunk: int = 256) -> torch.Tensor:
+    """Selective SSM (Mamba-1) forward over a sequence.  x: (B, S, D) ->
+    (B, S, D).  The depthwise causal conv, the selective parameters and
+    a chunked scan of the float32 state, as the reference."""
+    b, s, _ = x.shape
+    n = cfg.mamba_d_state
+    dtr = cfg.mamba_dt_rank
+    dt_ = x.dtype
+
+    xs, z = (x @ params["in_proj"].to(dt_)).chunk(2, dim=-1)  # (B, S, dI)
+
+    conv_w = params["conv_w"].to(dt_)                    # (dI, K)
+    kk = conv_w.shape[-1]
+    pad = F.pad(xs, (0, 0, kk - 1, 0))
+    xs = sum(pad[:, i:i + s] * conv_w[:, i] for i in range(kk))
+    xs = F.silu(xs + params["conv_b"].to(dt_))
+
+    dbc = xs @ params["x_proj"].to(dt_)                  # (B, S, dtr + 2N)
+    dt, bmat, cmat = dbc.split([dtr, n, n], dim=-1)
+    dt = softplus(dt @ params["dt_proj"].to(dt_) + params["dt_bias"].to(dt_))
+    a = -torch.exp(params["A_log"].float())              # (dI, N)
+
+    dt32 = dt.float()
+    da = torch.exp(dt32[..., None] * a)                  # (B, S, dI, N)
+    dbx = dt32[..., None] * bmat.float()[:, :, None, :] * xs.float()[..., None]
+
+    h = torch.zeros((b, da.shape[2], n), device=x.device)
+    hs = []
+    for c0 in range(0, s, chunk):
+        h_all, h = _ssm_chunk(da[:, c0:c0 + chunk], dbx[:, c0:c0 + chunk], h)
+        hs.append(h_all)
+    h_seq = torch.cat(hs, dim=1)                         # (B, S, dI, N)
+
+    y = torch.einsum("bsdn,bsn->bsd", h_seq, cmat.float())
+    y = y.to(dt_) + xs * params["D"].to(dt_)
+    y = y * F.silu(z)
+    return y @ params["out_proj"].to(dt_)
 
 
 def mamba_decode(params: Dict, x: torch.Tensor, state: Dict,
@@ -117,6 +178,34 @@ def _rwkv_tokens(params: Dict, x: torch.Tensor, x_prev: torch.Tensor,
     return r, k, v, w, g
 
 
+def shift_right(x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) shifted one token later along S, zeros first: each
+    token's predecessor (the token shift)."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def rwkv_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig
+             ) -> torch.Tensor:
+    """RWKV6 time-mix over a sequence.  x: (B, S, D) -> (B, S, D).  The
+    (B, H, hd, hd) float32 state is carried token by token, as in the
+    reference's inner scan; its outer chunking only pads past the last
+    token and changes no output, so it is not repeated here."""
+    b, s, _ = x.shape
+    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    r, k, v, w, g = _rwkv_tokens(params, x, shift_right(x))
+    r_, k_, v_, w_ = (t.reshape(b, s, h, hd).float() for t in (r, k, v, w))
+    u = params["u"].float()[None, :, :, None]            # (1, H, hd, 1)
+    st = torch.zeros((b, h, hd, hd), device=x.device)
+    outs = []
+    for t in range(s):
+        kv = k_[:, t, :, :, None] * v_[:, t, :, None, :]  # (B, H, hd, hd)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r_[:, t], st + u * kv))
+        st = w_[:, t, :, :, None] * st + kv
+    out = torch.stack(outs, dim=1).reshape(b, s, h * hd)
+    out = group_norm_heads(out.to(x.dtype), params["gn_scale"], h) * g
+    return out @ params["w_o"].to(x.dtype)
+
+
 def rwkv_decode(params: Dict, x: torch.Tensor, state: Dict,
                 cfg: ModelConfig, packed: Optional[Dict] = None,
                 impl: Optional[str] = None
@@ -142,14 +231,19 @@ def rwkv_decode(params: Dict, x: torch.Tensor, state: Dict,
             {"s": new_s, "x_prev": x[:, 0]})
 
 
-def rwkv_channel_mix(params: Dict, x: torch.Tensor, x_prev: torch.Tensor,
+def rwkv_channel_mix(params: Dict, x: torch.Tensor,
+                     x_prev: Optional[torch.Tensor] = None,
                      packed: Optional[Dict] = None,
                      impl: Optional[str] = None) -> torch.Tensor:
-    """RWKV channel-mix (squared-relu) at decode: x, x_prev (B, 1, D) ->
-    ``sigmoid(xr @ cm_r) * (relu(xk @ cm_k)² @ cm_v)``; ``packed`` maps
-    cm_k / cm_v / cm_r to ``BitmapWeight``s."""
+    """RWKV channel-mix (squared-relu): x, x_prev (B, S, D) ->
+    ``sigmoid(xr @ cm_r) * (relu(xk @ cm_k)² @ cm_v)``.  At decode
+    ``x_prev`` is the cached previous token (S = 1); over a sequence it
+    defaults to x's token shift.  ``packed`` maps cm_k / cm_v / cm_r to
+    ``BitmapWeight``s."""
     pk = packed or {}
     dt_ = x.dtype
+    if x_prev is None:
+        x_prev = shift_right(x)
     mu = params["cm_mu"].to(dt_)                         # (2, D)
     diff = x_prev - x
     xk = x + diff * mu[0]

@@ -834,3 +834,70 @@ def test_ssm_engine_on_card_goes_through_kernels(cuda, arch):
         "bitmap_spmm_grouped": per * layouts.count("grouped")
         * gpu.decode_steps}
     assert [r.tokens for r in a] == [r.tokens for r in b]
+
+
+# ------------------------------------------------------------ training -----
+
+
+def _train_case(arch, cuda):
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.train import to_device
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    batch = synth_batch(cfg, DataConfig(2, 16), 0)
+    return cfg, params, to_device(batch, "cpu"), to_device(batch, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-4b", "rwkv6-3b",
+                                  "jamba-v0.1-52b"])
+def test_train_grads_on_card_match_cpu(cuda, arch):
+    """Loss within 1e-5 relative and each leaf's gradient within
+    1e-4·max|CPU| + 1e-7 of the CPU's, float32, no kernel launched."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.sparse.pruning import tree_items, tree_map
+    cfg, params, b_cpu, b_card = _train_case(arch, cuda)
+    want = loss_and_grads(params, b_cpu, cfg)
+    reset_launches()
+    got = loss_and_grads(tree_map(lambda _, t: t.to(cuda), params), b_card,
+                         cfg)
+    assert dict(LAUNCHES) == NONE
+    assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
+    for (path, g), (_, w) in zip(tree_items(got[2]), tree_items(want[2])):
+        assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max() + 1e-7, \
+            path
+
+
+@pytest.mark.gpu
+def test_scan_attention_on_card_matches_cpu(cuda):
+    from repro_torch.models.layers import scan_attention
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 37, 8, 16, generator=g)
+    k, v = (torch.randn(2, 37, 2, 16, generator=g) for _ in range(2))
+    pos = torch.arange(37).expand(2, 37)
+    for window in (None, 9):
+        want = scan_attention(q, k, v, pos, window=window, q_chunk=16,
+                              kv_chunk=8)
+        got = scan_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             pos.to(cuda), window=window, q_chunk=16,
+                             kv_chunk=8)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_train_driver_on_card_defaults_to_cuda_and_resumes(cuda, tmp_path):
+    """``train`` with no device runs on the card; a checkpoint written
+    there restores onto the card and the run resumes from it."""
+    from repro_torch.launch.train import train
+    from repro_torch.sparse.pruning import tree_items
+    from repro_torch.train import checkpoint as ckpt
+    d = str(tmp_path)
+    res = train("olmo-1b", smoke=True, steps=4, batch=2, seq=16,
+                ckpt_dir=d, ckpt_every=2, sparsity=0.5)
+    assert all(t.is_cuda for _, t in tree_items(res["params"]))
+    assert np.isfinite(res["final_loss"]) and ckpt.latest_step(d) == 4
+    more = train("olmo-1b", smoke=True, steps=5, batch=2, seq=16,
+                 ckpt_dir=d, sparsity=0.5)
+    assert len(more["losses"]) == 1

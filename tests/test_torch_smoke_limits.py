@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
+from test_torch_threads import one_torch_thread  # noqa: F401  (fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -147,7 +148,85 @@ def test_phase5_times_the_fma_body_beside_the_tensor_path(smoke,
     monkeypatch.setattr(smoke, "graph_ms", once)
     monkeypatch.setattr(smoke, "time_ms", once)
     monkeypatch.setattr(smoke, "_sdpa_backend", lambda *a: "MATH")
+    # two input sets, not the ~950 that keep a card's replay past its L2
+    monkeypatch.setattr(smoke, "_copies", lambda nbytes: 2)
     q, k, v = _attn_inputs(torch.bfloat16, s=64, d=32)
     res = smoke.time_attention("rehearsal", q, k, v, None)
     assert "fma" in paths and res["path"] == "tensor"
     assert res["fma_path_ms"] > 0 and res["ms"] > 0 and res["bound_ms"] > 0
+
+
+
+
+def test_phase8_rehearsal_on_cpu(smoke, monkeypatch, capsys,
+                                 one_torch_thread):
+    """Phase 8 end to end on the CPU at smoke widths: the K1 / K1g / K2
+    wrappers replaced by plain versions that count launches,
+    ``ops.default_impl`` forced to "cuda", the timers, the profiler,
+    memory stats and the no-dense-copy check stubbed.  Training, the
+    parity and resume checks, K2 against ``scan_attention`` and serving
+    the trained model all run, and 8d's K1 launches are its decode steps'
+    (7 projections x 2 layers + the head)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import LAUNCHES, bitmap_spmm, flash_attention
+    from repro_torch.kernels import ops
+
+    def counting(name, plain):
+        def fake(*args, **kw):
+            kw.pop("path", None)
+            LAUNCHES[name] += 1
+            return plain(*args, **kw)
+        return fake
+
+    monkeypatch.setattr(bitmap_spmm, "bitmap_spmm",
+                        counting("bitmap_spmm", ref.bitmap_spmm_ref))
+    monkeypatch.setattr(bitmap_spmm, "bitmap_spmm_grouped",
+                        counting("bitmap_spmm_grouped",
+                                 ref.bitmap_spmm_grouped_ref))
+    monkeypatch.setattr(flash_attention, "flash_attention",
+                        counting("flash_attention", ref.attention_ref))
+    monkeypatch.setattr(ops, "default_impl", lambda x: "cuda")
+    monkeypatch.setattr(smoke, "sync", lambda: None)
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "assert_no_dense_copy", lambda eng: None)
+    monkeypatch.setattr(smoke, "profile_device",
+                        lambda run, steps: [run() for _ in range(steps)]
+                        and None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda: 0)
+    cfg = get_smoke_config("olmo-1b")
+    cpu = torch.device("cpu")
+    out = smoke.training_phase(cfg, cpu, torch.Generator().manual_seed(0),
+                               "rehearsal", batch=4, seq=32, long_seq=64)
+    rec, path = out["train"], out["bitmap_spmm"]
+    assert len(rec["losses"]) == 12 + 4 and rec["timed_steps"] == 8
+    assert rec["idle_share"] is None and rec["sparsity_blocks"] >= 0.499
+    assert rec["mfu"] > 0 and rec["tokens_per_s"] > 0
+    long = rec["long_seq"]
+    assert long["seq"] == 64 and long["timed_steps"] == 3
+    assert long["tokens_per_s"] > 0 and long["mfu"] > 0
+    for r in (rec, long):
+        assert r["fwd_bwd_ms"] == 1.0 and 0 <= r["update_share"] < 1
+    assert path["launches_per_step"] == 7 * cfg.num_layers + 1
+    assert path["launches"] == path["launches_per_step"] * path[
+        "decode_steps"] > 0
+    text = capsys.readouterr().out
+    for arch in smoke.TRAIN_ARCHS:
+        assert f"{arch}-smoke train step, card against CPU" in text
+    assert "restored and resumed equal the uninterrupted run" in text
+    assert text.count("max |K2 - scan_attention|") == 2
+
+
+def test_train_flops_counts_olmo_at_full_width(smoke):
+    """6·N·T plus the attention term, and the remat recompute apart, for
+    olmo-1b at batch 4 x seq 512 (1.18 B parameters)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("olmo-1b")
+    n, t = cfg.param_count(), 4 * 512
+    assert 1.17e9 < n < 1.19e9
+    f = smoke.train_flops(cfg, 4, 512)
+    attn = 16 * 16 * 128 * 512 * t
+    assert f["model"] == 6 * n * t + 12 * attn
+    head = 2048 * 50304
+    assert f["remat"] == 2 * (n - head) * t + 4 * attn + 2 * head * t
