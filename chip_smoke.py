@@ -32,6 +32,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and head; jamba's mamba in_proj, x_proj at BN 96, dt_proj, out_proj;
    jamba smoke's dt_proj at BK 4) and K1g at rwkv6-3b's 5-group mix_B
    (32, 2560), rows M in {1, 4, 64}, weights pruned to {0, 0.5, 0.95};
+   then sharded weights (``shard_bitmap``, 2 shards, tiles chosen
+   against a shard's slice): K1 on olmo-1b's wq (col), w_down (row) and
+   head (col, BN 96), K1g on granite's expert gate/up (col) and down
+   (row), each product one launch per shard (``ops._sharded_spmm``)
+   against the plain version of the unsharded weight, M in {1, 4};
    float32 and bfloat16 X; atol 2e-3·√K (float32) / 2e-2·√K (bfloat16),
    rtol 1e-2.
 3. olmo-1b: ``ServeEngine`` on the full configuration (16 layers, full
@@ -161,6 +166,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    served: 4 requests, prompts from the synthetic stream, budgets 16,
    walked; every budget served, 113 K1 launches per decode step, no
    dense copy, one decode step through K1 against the plain step.
+9. Sharded serving over ``torch.distributed``: full-width olmo-1b
+   (params from seed 9), sparsity 0.5, 4 slots, 4 Poisson requests of
+   8 new tokens walked, served first by the one-rank engine here, then
+   by a world of 2 ranks (this script with ``--phase9-rank``): gloo,
+   both ranks on this card (and NCCL, a card per rank, where the host
+   has 2 cards or more).  (a) ``model_parallel=2``, contiguous: the
+   packed stack and the vocabulary-split head sharded, each rank
+   holding its part; (b) ``model_parallel=1``, paged with
+   ``kv_shards=2``: the page pools sharded.  Tokens equal to the
+   one-rank run's exactly, the gathered stack and head byte-equal to
+   the unsharded packs (CRC32), 113 K1 launches per decode step on each
+   rank, each rank's resident packed bytes about half the one-rank
+   figure (manifest and ``memory_allocated``); it prints the step wall,
+   the gather's ms and bytes received per step, the peak memory per
+   rank and the backend.  A rank that fails fails the run.
 
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
 its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
@@ -175,6 +195,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -2480,6 +2501,300 @@ def training_phase(cfg, device, gen, smi: str, **sizes) -> dict:
     return {"train": rec, "bitmap_spmm": path}
 
 
+# ------------------------------------------------------------ phase 2 ----
+# K1 / K1g on a sharded weight: one launch per shard (ops._sharded_spmm).
+SHARDED_CASES = (("olmo qkvo", 2048, 2048, "col"),
+                 ("olmo down", 8192, 2048, "row"),
+                 ("olmo head", 2048, 50304, "col"))
+SHARDED_EXPERT_CASES = (("granite gate_up", 1536, 512, "col"),
+                        ("granite down", 512, 1536, "row"))
+
+
+def sharded_against_plain(device, gen, cases, rows, groups: int = 0,
+                          shards: int = 2, sparsity: float = 0.5) -> float:
+    """Phase 2's sharded cases: each weight packed against its per-shard
+    slice and split ``shards`` ways (``shard_bitmap``), then multiplied
+    through ``ops.bitmap_spmm(_grouped)``, which launches the kernel
+    once per shard (column shards concatenated, row shards' partial
+    products summed), against the plain version of the unsharded
+    weight.  Returns the largest absolute difference seen."""
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.serve.packed import choose_block
+    from repro_torch.sparse import (pack_bitmap, pack_bitmap_experts,
+                                    per_tensor_prune)
+    from repro_torch.sparse.format import (shard_bitmap,
+                                           unpack_bitmap_stacked)
+    name_k = "bitmap_spmm_grouped" if groups else "bitmap_spmm"
+    kernel = ops.bitmap_spmm_grouped if groups else ops.bitmap_spmm
+    lead = (groups,) if groups else ()
+    worst = 0.0
+    for name, k, n, mode in cases:
+        block = (choose_block(k, n // shards) if mode == "col"
+                 else choose_block(k // shards, n))
+        w = per_tensor_prune(torch.randn(*lead, k, n, generator=gen,
+                                         device=device), sparsity)
+        bw = (pack_bitmap_experts(w[None], block=block).period(0)
+              if groups else pack_bitmap(w, block=block))
+        plain_w = dataclasses.replace(bw,
+                                      dense_cache=unpack_bitmap_stacked(bw))
+        sharded = shard_bitmap(bw, shards, mode)
+        err = 0.0
+        for m in rows:
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(*lead, m, k, generator=gen,
+                                device=device).to(dt)
+                before = LAUNCHES[name_k]
+                out = kernel(x, sharded, impl="cuda")
+                assert LAUNCHES[name_k] - before == shards, (name, m, dt)
+                ref = kernel(x, plain_w, impl="torch")
+                sync()
+                err = max(err, _compare(f"{name} {mode}/{shards} M={m}",
+                                        out, ref, k, dt))
+        worst = max(worst, err)
+        print(f"  sharded {name} {'G=%d ' % groups if groups else ''}"
+              f"K={k} N={n} {mode} x{shards}, block {block}: one launch "
+              f"per shard, max |kernel - plain of the unsharded weight| "
+              f"{err:.3g} over M={list(rows)}, f32 and bf16")
+        del bw, plain_w, sharded, w
+    return worst
+
+
+# ------------------------------------------------------------ phase 9 ----
+# Sharded serving: a world of 2 ranks, each its own process, serving
+# full-width olmo-1b through the gather-then-compute step.
+P9_RUNS = ({"label": "a: model_parallel 2, contiguous", "mp": 2,
+            "paged": False, "checksum": True},
+           {"label": "b: model_parallel 1, paged, kv_shards 2", "mp": 1,
+            "paged": True, "checksum": False})
+P9 = dict(slots=4, max_len=64, sparsity=0.5, page_len=16, seed=9)
+RANK_COMMAND = [sys.executable, str(ROOT / "chip_smoke.py"), "--phase9-rank"]
+
+
+def _p9_engine(cfg, params, device, run):
+    from repro_torch.serve import ServeEngine
+    return ServeEngine(cfg, params=params, device=device,
+                       num_slots=P9["slots"], max_len=P9["max_len"],
+                       sparsity=P9["sparsity"], seed=0,
+                       model_parallel=run["mp"], paged=run["paged"],
+                       page_len=P9["page_len"])
+
+
+def _resident(eng) -> int:
+    """Packed bytes this process holds: the stack's leaves and the head
+    (a rank's parts only)."""
+    head = eng.lm_weight.resident_bytes if eng.lm_weight is not None else 0
+    return sum(bw.resident_bytes for _, bw in eng.packed.leaves()) + head
+
+
+def phase9_rank(spec_path: str, out_dir: str) -> int:
+    """One rank of phase 9 (``chip_smoke.py --phase9-rank SPEC OUT``,
+    started by ``sharded_phase`` with RANK / WORLD_SIZE / LOCAL_RANK /
+    MASTER_ADDR / MASTER_PORT set): joins the world with the spec's
+    backend, draws olmo-1b's params from the spec's seed, serves the
+    trace in each run and writes what it saw to OUT/rank<r>.json."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.launch.steps import _gather_packed, _gather_weight
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.faults import _checksum
+    spec = json.load(open(spec_path))
+    device = init_world(spec["backend"], "cuda")
+    cfg = get_config(spec["arch"])
+    gen = torch.Generator(device=device).manual_seed(P9["seed"])
+    params = init_params(gen, cfg, device=device)
+    out = {"rank": dist.get_rank(), "device": str(device), "runs": []}
+    for run in P9_RUNS:
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        eng = _p9_engine(cfg, params, device, run)
+        torch.cuda.synchronize(device)
+        rec = {"held_bytes": torch.cuda.memory_allocated(device) - before,
+               "resident": _resident(eng), "mesh": eng.mesh.shape,
+               "shards": eng.weight_stream_report()["shards"],
+               "kv_shards": eng.kv.shards if eng.page_len else 1}
+        if run["checksum"]:
+            full, _ = _gather_packed(eng.packed.blocks, eng.mesh)
+            rec["stack_crc"] = [_checksum(bw) for bw in (
+                w for bd in full.values() for t in bd.values()
+                for w in t.values() if w is not None)]
+            head, _ = _gather_weight(eng.lm_weight, eng.mesh)
+            rec["head_crc"] = _checksum(head)
+            del full, head
+        eng.warmup()
+        torch.cuda.synchronize(device)
+        eng._step_fn.stats.reset()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        reqs = [eng.submit(**r) for r in spec["trace"]]
+        rep = eng.run()
+        rec.update(tokens=[list(r.tokens) for r in reqs],
+                   launches=dict(LAUNCHES), decode_steps=eng.decode_steps,
+                   wall_s=rep["wall_s"], gather=eng._step_fn.stats.report(),
+                   peak=torch.cuda.max_memory_allocated(device))
+        out["runs"].append(rec)
+        del eng, rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(pathlib.Path(out_dir) / f"rank{out['rank']}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_world(backend: str, spec: dict, world: int = 2,
+                 timeout: int = 600) -> list:
+    """Start ``world`` ranks of phase 9 with ``backend`` and wait for
+    them; a rank that fails fails the phase.  Returns each rank's
+    record."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = pathlib.Path(tmp) / "spec.json"
+        spec_path.write_text(json.dumps({**spec, "backend": backend}))
+        env = {**os.environ, "WORLD_SIZE": str(world),
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+               "OMP_NUM_THREADS": "1"}
+        procs = [subprocess.Popen(
+            [*RANK_COMMAND, str(spec_path), tmp],
+            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        try:
+            logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"phase 9 rank {r} ({backend}) "
+                                     f"exited {p.returncode}:\n"
+                                     f"{log[-4000:]}")
+        return [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(world)]
+
+
+def sharded_phase(cfg, device, smi: str, requests: int = 4,
+                  budget: int = 8) -> list:
+    """Phase 9: sharded serving over ``torch.distributed``.  First the
+    one-rank engine serves the trace in each run's layout here (the
+    tokens to match, the packed bytes one process holds), then a world of
+    2 ranks serves it: gloo, both ranks on this card (NCCL cannot put
+    two ranks on one card), and, on a host with 2 cards or more, NCCL
+    with a card per rank.  (a) model_parallel 2, contiguous: the packed
+    stack and the vocabulary-split head sharded, each rank holding its
+    half; (b) model_parallel 1, paged with kv_shards 2: the weights
+    whole, the page pools sharded over the data axis.  Checks: tokens
+    equal to the one-rank run's exactly (the gathered weights are
+    byte-equal, the base step unchanged); in (a) the gathered stack's
+    checksums equal to the one-rank pack's and the head's to the
+    unsharded vocabulary-split pack's; 113 K1 launches per decode step
+    on each rank; each rank's resident packed bytes about half the
+    one-rank figure, by the manifest and by ``memory_allocated``.
+    Returns K1's path records (launches summed over the ranks)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import poisson_trace
+    from repro_torch.serve.engine import pack_lm_head
+    from repro_torch.serve.faults import _checksum
+    from repro_torch.sparse.format import unshard_bitmap
+    trace = poisson_trace(requests, rate=0.5, seed=P9["seed"],
+                          vocab_size=cfg.vocab_size, prompt_len=(4, 12),
+                          max_new=(budget, budget))
+    per_step = 7 * cfg.num_periods + 1
+    gen = torch.Generator(device=device).manual_seed(P9["seed"])
+    params = init_params(gen, cfg, device=device)
+    single = []
+    for run in P9_RUNS:
+        sync()
+        before = torch.cuda.memory_allocated()
+        eng = _p9_engine(cfg, params, device, dict(run, mp=1))
+        sync()
+        rec = {"held_bytes": torch.cuda.memory_allocated() - before,
+               "resident": _resident(eng)}
+        if run["checksum"]:
+            rec["stack_crc"] = [_checksum(bw)
+                                for _, bw in eng.packed.leaves()]
+            rec["head_crc"] = _checksum(unshard_bitmap(pack_lm_head(
+                eng.params, cfg, P9["sparsity"], shards=2)))
+        rep = serve(eng, trace, f"phase 9 one rank ({run['label']})")
+        rec.update(tokens=rep["tokens"], decode_steps=eng.decode_steps,
+                   wall_s=rep["wall_s"])
+        single.append(rec)
+        del eng, rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
+                           else [])
+    print(f"phase 9 on {smi}: {torch.cuda.device_count()} card(s); "
+          f"backends {backends} (gloo puts both ranks on cuda:0 and "
+          f"gathers through host memory"
+          + ("" if len(backends) > 1 else "; NCCL needs a card per rank, "
+             "so it does not run on this host") + ")")
+    paths = []
+    for backend in backends:
+        t0 = time.perf_counter()
+        ranks = _spawn_world(backend, {"arch": cfg.name, "trace": trace})
+        print(f"phase 9 {backend}: 2 ranks in "
+              f"{time.perf_counter() - t0:.1f}s (start, init, prune, pack, "
+              f"serve both runs)")
+        for i, run in enumerate(P9_RUNS):
+            one = single[i]
+            for res in ranks:
+                r = res["runs"][i]
+                tag = f"phase 9 {backend} rank {res['rank']} ({run['label']})"
+                assert r["tokens"] == one["tokens"], (tag, r["tokens"],
+                                                      one["tokens"])
+                assert r["launches"]["bitmap_spmm"] == (
+                    per_step * r["decode_steps"]), (tag, r["launches"])
+                assert r["launches"]["bitmap_spmm_grouped"] == 0, tag
+                if run["mp"] > 1:
+                    assert r["shards"] == 2 and r["mesh"] == {
+                        "data": 1, "model": 2}, tag
+                    assert r["stack_crc"] == one["stack_crc"], tag
+                    assert r["head_crc"] == one["head_crc"], tag
+                    share = r["resident"] / one["resident"]
+                    assert 0.45 <= share <= 0.55, (tag, share)
+                    saved = one["held_bytes"] - r["held_bytes"]
+                    assert saved >= 0.4 * one["resident"], (tag, saved)
+                else:
+                    assert r["kv_shards"] == 2 and r["mesh"] == {
+                        "data": 2, "model": 1}, tag
+                g = r["gather"]
+                print(f"  {tag} on {res['device']}: tokens equal to one "
+                      f"rank's ({sum(map(len, r['tokens']))}); "
+                      f"{r['launches']['bitmap_spmm'] // r['decode_steps']}"
+                      f" K1 launches per decode step x {r['decode_steps']};"
+                      f" step wall {1e3 * r['wall_s'] / r['decode_steps']:.1f}"
+                      f" ms (one rank "
+                      f"{1e3 * one['wall_s'] / one['decode_steps']:.1f}"
+                      f" ms); gather {g['ms_per_call']:.1f} ms and "
+                      f"{g['bytes_received_per_call'] / 1e6:.1f} MB "
+                      f"received per decode step; resident packed "
+                      f"{r['resident'] / 1e9:.3f} GB (one rank "
+                      f"{one['resident'] / 1e9:.3f}), held by the engine "
+                      f"{r['held_bytes'] / 2**30:.2f} GiB (one rank "
+                      f"{one['held_bytes'] / 2**30:.2f}); peak "
+                      f"{r['peak'] / 2**30:.2f} GiB; backend {backend}")
+            if run["checksum"]:
+                print(f"  gathered stack and head byte-equal to the "
+                      f"unsharded packs ({len(one['stack_crc'])} leaves "
+                      f"+ head, CRC32)")
+            paths.append({"path": f"phase 9, {cfg.name} sharded over 2 "
+                                  f"ranks, {backend}, {run['label']}",
+                          "launches": sum(res["runs"][i]["launches"][
+                              "bitmap_spmm"] for res in ranks),
+                          "launches_per_step": per_step, "ranks": 2,
+                          "decode_steps": ranks[0]["runs"][i][
+                              "decode_steps"]})
+    return paths
+
+
 def phase(label: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[{label}: {now - t0:.1f}s]")
@@ -2491,7 +2806,9 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         expert_shapes=GRANITE_EXPERT_SHAPES, attn=None,
         rows=MATMUL_ROWS, timed_rows=(4, 2048), rwkv_cfg=None,
         jamba_cfg=None, jamba_smoke=None, ssm_shapes=SSM_SHAPES,
-        mix_b_shapes=MIX_B_SHAPES, smi: str = "") -> dict:
+        mix_b_shapes=MIX_B_SHAPES, sharded_cases=SHARDED_CASES,
+        sharded_expert_cases=SHARDED_EXPERT_CASES,
+        smi: str = "") -> dict:
     """Phases 2-8; returns the kernels record.  A kernel's ``launches``
     sums its ``paths`` (each path's run with the counts set to 0 just
     before it).  K1's and K1g's ``ms``, ``plain_ms``, ``bound_ms`` and
@@ -2505,7 +2822,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         kernel_against_plain(device, gen, granite_shapes, GRANITE_ROWS,
                              GRANITE_SPARSITIES),
         kernel_against_plain(device, gen, ssm_shapes, SSM_ROWS,
-                             SSM_SPARSITIES))}
+                             SSM_SPARSITIES),
+        sharded_against_plain(device, gen, sharded_cases, (1, 4)))}
     worst["bitmap_spmm_grouped"] = max(
         kernel_against_plain(device, gen, expert_shapes, GRANITE_ROWS,
                              GRANITE_SPARSITIES,
@@ -2513,7 +2831,9 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         grouped_edge_cases(device, gen, expert_shapes, GRANITE_ROWS,
                            granite_cfg.num_experts),
         kernel_against_plain(device, gen, mix_b_shapes, SSM_ROWS,
-                             SSM_SPARSITIES, groups=5))
+                             SSM_SPARSITIES, groups=5),
+        sharded_against_plain(device, gen, sharded_expert_cases, (1, 4),
+                              groups=granite_cfg.num_experts))
     print(f"kernels against plain: {dict(LAUNCHES)} comparison launches, "
           f"max |kernel - plain| {worst}")
     reset_launches()
@@ -2552,7 +2872,10 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     trained = training_phase(olmo_cfg, device, gen, smi)
     print(f"phase 8a record ({smi}): "
           f"{json.dumps(trained['train'])}")
-    phase("phase 8, training on the card", t)
+    t = phase("phase 8, training on the card", t)
+
+    sharded = sharded_phase(olmo_cfg, device, smi)
+    phase("phase 9, sharded serving over torch.distributed", t)
 
     def record(name, paths, times, scope, **extra):
         ms, plain_ms, b_ms, by, lib_ms = times
@@ -2565,7 +2888,7 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
 
     k1_paths = ([p["bitmap_spmm"] for p in olmo_paths] + [chaos_path]
                 + [p["bitmap_spmm"] for p in granite_paths]
-                + ssm["bitmap_spmm"] + [trained["bitmap_spmm"]])
+                + ssm["bitmap_spmm"] + [trained["bitmap_spmm"]] + sharded)
     k1g_paths = ([p["bitmap_spmm_grouped"] for p in granite_paths]
                  + ssm["bitmap_spmm_grouped"])
     g1 = g_times["bitmap_spmm"]
@@ -2607,6 +2930,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--phase9-rank"]:
+        return phase9_rank(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on the card",
               file=sys.stderr)

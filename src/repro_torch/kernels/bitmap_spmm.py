@@ -383,6 +383,31 @@ def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
     return out
 
 
+def shard_slice(w: BitmapWeight, s: int) -> BitmapWeight:
+    """The s-th shard of a sharded BitmapWeight as a plain per-shard
+    BitmapWeight (shard axis indexed away, per-shard logical shape):
+    column shards hold (K, N/S), row shards (K/S, N), exact contiguous
+    slices of the unsharded matrix.  The kernels take it as is; the
+    caller composes the outputs (``ops._sharded_spmm``).  Views, no copy
+    (a grouped weight's slice is strided across its groups)."""
+    from repro_torch.sparse.format import _TILE_ND
+    assert w.shard is not None and w.part is None, (w.shard, w.part)
+    mode, shards = w.shard
+    k, n = w.shape
+    shape = (k, n // shards) if mode == "col" else (k // shards, n)
+
+    def take(name):
+        leaf = getattr(w, name)
+        if leaf is None:
+            return None
+        return leaf.select(leaf.dim() - _TILE_ND[name] - 1, s)
+
+    return BitmapWeight(packed_bits=take("packed_bits"),
+                        values=take("values"), row_start=take("row_start"),
+                        shape=shape, block=w.block,
+                        dense_cache=take("dense_cache"))
+
+
 def hbm_traffic_model(x_shape: Tuple[int, ...], w: BitmapWeight,
                       bm: int = 128, itemsize: int = 2) -> dict:
     """Analytic HBM bytes of one bitmap_spmm call vs its dense equivalent

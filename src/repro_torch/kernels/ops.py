@@ -8,13 +8,17 @@ back to it silently.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import bitmap_spmm as _bitmap_spmm
 from repro_torch.kernels import block_sparse as _block_sparse
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import ref as _ref
-from repro_torch.sparse.format import BitmapWeight, BlockSparseWeight
+from repro_torch.kernels.bitmap_spmm import shard_slice
+from repro_torch.sparse.format import (BitmapWeight, BlockSparseWeight,
+                                       unshard_bitmap)
 
 IMPLS = ("cuda", "torch")
 
@@ -47,9 +51,50 @@ def flat_product(x: torch.Tensor, w, impl: str | None, kernel, plain,
 
 def bitmap_spmm(x: torch.Tensor, w: BitmapWeight, impl: str | None = None,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``x @ W`` with W bitmap-compressed; x may be (..., K)."""
-    return flat_product(x, w, impl, _bitmap_spmm.bitmap_spmm,
-                        _ref.bitmap_spmm_ref, out_dtype)
+    """``x @ W`` with W bitmap-compressed; x may be (..., K).  A sharded
+    W (``sparse.format.shard_bitmap``) takes one kernel launch per shard
+    on the card (``_sharded_spmm``); the plain version unshards it
+    first, which gives the same product."""
+    if w.shard is None:
+        return flat_product(x, w, impl, _bitmap_spmm.bitmap_spmm,
+                            _ref.bitmap_spmm_ref, out_dtype)
+    return flat_product(
+        x, w, impl,
+        lambda x2, w2, out_dtype: _sharded_spmm(
+            x2, w2, _bitmap_spmm.bitmap_spmm, out_dtype),
+        lambda x2, w2, out_dtype: _ref.bitmap_spmm_ref(
+            x2, unshard_bitmap(w2), out_dtype=out_dtype),
+        out_dtype)
+
+
+def _contiguous(w: BitmapWeight) -> BitmapWeight:
+    """``w`` with contiguous packed tensors (a grouped shard's slice is
+    strided across its groups; the kernels read dense rows)."""
+    return dataclasses.replace(
+        w, packed_bits=w.packed_bits.contiguous(),
+        values=w.values.contiguous(), row_start=w.row_start.contiguous())
+
+
+def _sharded_spmm(x: torch.Tensor, w: BitmapWeight, kernel,
+                  out_dtype: torch.dtype | None) -> torch.Tensor:
+    """One ``kernel`` launch per shard of a sharded BitmapWeight: column
+    shards each produce a contiguous N slice (concatenated); row shards
+    each take a contiguous K slice of x and their partial products sum
+    in float32, the sum a reduction across model-axis ranks performs.
+    x's contraction axis is last ((M, K), or grouped (G, M, K))."""
+    mode, shards = w.shard
+    if mode == "col":
+        return torch.cat([kernel(x, _contiguous(shard_slice(w, s)),
+                                 out_dtype=out_dtype)
+                          for s in range(shards)], dim=-1)
+    ks = w.shape[0] // shards
+    total = None
+    for s in range(shards):
+        part = kernel(x[..., s * ks:(s + 1) * ks].contiguous(),
+                      _contiguous(shard_slice(w, s)),
+                      out_dtype=torch.float32)
+        total = part if total is None else total + part
+    return total.to(out_dtype or x.dtype)
 
 
 def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
@@ -58,12 +103,18 @@ def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
                         ) -> torch.Tensor:
     """``x[g] @ W_g`` over a group-stacked ``BitmapWeight`` (MoE expert
     stacks; ``sparse.format.pack_bitmap_experts``): x (G, M, K) ->
-    (G, M, N), one kernel launch for all G groups on the card."""
+    (G, M, N), one kernel launch for all G groups on the card (one per
+    shard of a sharded W)."""
     impl = resolve_impl(x, impl)
     if impl == "cuda":
+        if w.shard is not None:
+            return _sharded_spmm(x.contiguous(), w,
+                                 _bitmap_spmm.bitmap_spmm_grouped,
+                                 out_dtype)
         return _bitmap_spmm.bitmap_spmm_grouped(x.contiguous(), w,
                                                 out_dtype=out_dtype)
-    return _ref.bitmap_spmm_grouped_ref(x, w, out_dtype=out_dtype)
+    return _ref.bitmap_spmm_grouped_ref(x, unshard_bitmap(w),
+                                        out_dtype=out_dtype)
 
 
 def block_sparse_matmul(x: torch.Tensor, w: BlockSparseWeight,

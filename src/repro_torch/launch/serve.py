@@ -10,11 +10,22 @@ A seeded fault campaign under the auditor, with every artifact:
   ... --audit --chaos-seed 3 --trace-out out/trace.json \
       --events-out out/events.jsonl --metrics-out out/metrics.json \
       --traffic-out out/traffic.json
+Sharded serving, one process per rank (``torch.distributed.run`` sets
+RANK / WORLD_SIZE / LOCAL_RANK; only rank 0 prints and writes files):
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch olmo-1b --smoke \
+      --model-parallel 2 --dist-backend gloo --device cpu
+On cards, ``--dist-backend nccl`` puts rank r on cuda:LOCAL_RANK;
+``gloo`` lets several ranks share the card ``--device`` names.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import BACKENDS, init_world
 from repro_torch.serve import (FaultPlan, ServeEngine, ServeOverloaded,
                                poisson_trace)
 
@@ -28,6 +39,7 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                 page_pool_tokens: int | None = None,
                 prefill_chunk: int = 0, prefix_reuse: bool = False,
                 preempt: bool = False, max_preempts: int = 8,
+                model_parallel: int = 1, kv_shards: int | None = None,
                 deadline_ms: float | None = None,
                 max_queue: int | None = None,
                 ttft_budget_ms: float | None = None, audit: bool = False,
@@ -58,6 +70,9 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
     ``events_out`` / ``metrics_out`` / ``traffic_out`` write the Chrome
     trace, the JSONL event log, the metrics snapshot (``.prom``:
     Prometheus text) and the traffic ledger's artifact.
+    ``model_parallel`` / ``kv_shards`` shard the packed stack and the
+    paged KV pools over the ranks of the ``torch.distributed`` world the
+    caller started (``ServeEngine``); every rank calls this alike.
     ``device`` defaults to ``cuda`` and raises without a card.
     """
     eng = ServeEngine.from_arch(arch, smoke=smoke, num_slots=slots,
@@ -70,6 +85,8 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                                 prefill_chunk=prefill_chunk,
                                 prefix_reuse=prefix_reuse, preempt=preempt,
                                 max_preempts=max_preempts,
+                                model_parallel=model_parallel,
+                                kv_shards=kv_shards,
                                 deadline_ms=deadline_ms, max_queue=max_queue,
                                 ttft_budget_ms=ttft_budget_ms, audit=audit,
                                 faults=faults, trace_out=trace_out,
@@ -103,6 +120,18 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
               f"({ws['reduction']:.2f}x)")
         if rep["head_fallback"]:
             print(f"  head fallback: {rep['head_fallback']}")
+        if eng.mesh.size > 1:
+            g = eng._step_fn.stats.report()
+            print(f"sharded: mesh {eng.mesh.shape} over "
+                  f"{eng.mesh.backend} | packed shards {ws['shards']}, "
+                  f"kv shards {eng.kv.shards if eng.page_len else 1} | "
+                  f"per-rank weight bytes per step "
+                  f"{ws['device_sparse_bytes_per_step']/1e6:.2f}MB | "
+                  f"decode gathers {g['ms_per_call']:.2f}ms and "
+                  f"{g['bytes_received_per_call']/1e6:.2f}MB received per "
+                  f"step")
+            for key, reason in ws["shard_fallbacks"].items():
+                print(f"  shard fallback {key}: {reason}")
         tr = rep["traffic"]
         td, tp = tr["phases"]["decode"], tr["phases"]["prefill"]
         en = tr["energy"]
@@ -265,12 +294,36 @@ def main(argv=None):
                     help="write the memory-traffic artifact at exit "
                          "(per-role HBM ledger, per-phase byte counters, "
                          "energy + H100 roofline projection)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="shard the packed stack and the head over this "
+                         "many ranks of the torch.distributed world (the "
+                         "model axis of the largest mesh that divides it)")
+    ap.add_argument("--kv-shards", type=int, default=None,
+                    help="shard the paged KV pools over the mesh's data "
+                         "axis (default: its extent)")
+    ap.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                    help="collectives of a world of several ranks (started "
+                         "by torch.distributed.run): nccl, one card per "
+                         "rank, or gloo (through host memory; several "
+                         "ranks may share a card or run on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     faults = (FaultPlan.chaos(seed=args.chaos_seed)
               if args.chaos_seed is not None else None)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    device = args.device
+    if world > 1:
+        if args.dist_backend is None:
+            ap.error(f"a world of {world} ranks needs --dist-backend "
+                     f"(nccl or gloo)")
+        device = str(init_world(args.dist_backend, args.device))
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+
+    def out(path):
+        return path if rank0 else None
+
     serve_trace(args.arch, smoke=args.smoke, slots=args.slots,
                 requests=args.requests, rate=args.rate,
                 max_len=args.max_len, sparsity=args.sparsity,
@@ -282,12 +335,18 @@ def main(argv=None):
                 prefill_chunk=args.prefill_chunk,
                 prefix_reuse=args.prefix_reuse, preempt=args.preempt,
                 max_preempts=args.max_preempts,
+                model_parallel=args.model_parallel,
+                kv_shards=args.kv_shards,
                 deadline_ms=args.deadline_ms, max_queue=args.max_queue,
                 ttft_budget_ms=args.ttft_budget_ms,
                 audit=args.audit or faults is not None, faults=faults,
-                trace_out=args.trace_out, events_out=args.events_out,
-                metrics_out=args.metrics_out, traffic_out=args.traffic_out,
-                device=args.device, seed=args.seed)
+                trace_out=out(args.trace_out),
+                events_out=out(args.events_out),
+                metrics_out=out(args.metrics_out),
+                traffic_out=out(args.traffic_out),
+                device=device, seed=args.seed, verbose=rank0)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

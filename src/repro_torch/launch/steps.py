@@ -1,22 +1,26 @@
 """Step-function builders: train, eval, prefill logits, serve (decode)
 and the chunked-prefill call.
 
-Port of ``repro/launch/steps.py`` on one device.  The train step is
+Port of ``repro/launch/steps.py``.  The train step is
 forward, backward through ``torch.autograd.grad`` and an in-place AdamW
 update, with masked-gradient sparse training and gradient accumulation.
 The serve step is greedy argmax by default; slots with a temperature
 above 0 sample from ``softmax(logits / T)``, optionally truncated to
-their own top-k.
+their own top-k.  ``build_serve_step_spmd`` / ``build_prefill_step_spmd``
+run those steps on a rank of a sharded world (gather, then compute).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch.sharding import bitmap_sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, lm_head_weight,
                                       loss_fn, prefill_hidden)
+from repro_torch.sparse.format import all_gather_concat, gather_bitmap
 from repro_torch.sparse.pruning import tree_items, tree_map
 from repro_torch.train import optimizer as opt_lib
 
@@ -186,4 +190,176 @@ def build_prefill_step(cfg: ModelConfig) -> Callable:
         return prefill_hidden(params, cache, cfg, tokens, pos, lens,
                               packed=packed, page_tables=page_tables)
 
+    return prefill_step
+
+
+# ---------------------------------------------------------------- SPMD ----
+# Sharded serving: the decode and prefill steps above, run by every rank
+# of the engine's (data, model) mesh.  Each rank stores its part of every
+# model-sharded packed weight (``sparse.format.keep_part``) and its shard
+# of each data-sharded paged KV pool (``PagedKVCache(local_shard=...)``).
+# The step is gather-then-compute: the parts and pool chunks are
+# all-gathered, the *unchanged* base step runs on the whole weights and
+# pools, and each rank keeps its own chunk of the written pools.  So the
+# tokens are those of the one-rank step by construction, while each rank
+# stores 1/S of the packed stack.  The gathered copies live for one call.
+
+
+class GatherStats:
+    """What the sharded steps' gathers cost on this rank: calls, host
+    seconds (the gathers, synchronised on a card) and bytes received."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.seconds = 0.0
+        self.bytes_received = 0
+
+    def add(self, seconds: float, received: int) -> None:
+        self.calls += 1
+        self.seconds += seconds
+        self.bytes_received += received
+
+    def report(self) -> Dict:
+        n = max(self.calls, 1)
+        return {"calls": self.calls, "ms_per_call": 1e3 * self.seconds / n,
+                "bytes_received_per_call": self.bytes_received // n}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _gather_weight(bw, mesh) -> Tuple[object, int]:
+    """(whole weight, bytes received) of a rank's part, or ``bw`` as it
+    is when it is not sharded over the mesh's model axis."""
+    if not bitmap_sharded(bw, mesh):
+        return bw, 0
+    full = gather_bitmap(bw, mesh.group("model"))
+    return full, (bw.parts - 1) * bw.resident_bytes
+
+
+def _gather_packed(tree, mesh) -> Tuple[Optional[Dict], int]:
+    """Every model-sharded weight of a packed block tree gathered whole
+    (replicated and ``None`` leaves pass through), and the bytes
+    received."""
+    if tree is None:
+        return None, 0
+    out, got = {}, 0
+    for bname, bdict in tree.items():
+        out[bname] = {}
+        for comp, tensors in bdict.items():
+            out[bname][comp] = {}
+            for name, bw in tensors.items():
+                out[bname][comp][name], n = _gather_weight(bw, mesh)
+                got += n
+    return out, got
+
+
+def _gather_cache(cache: Dict, pools: frozenset, mesh) -> Tuple[Dict, int]:
+    """The whole page pools (axis 1, after the period stack) gathered
+    from every rank's chunk over the data axis (page ids in the tables
+    are global); every other leaf is this rank's own, replicated."""
+    if mesh.data <= 1 or not pools:
+        return cache, 0
+    out, got = {}, 0
+    for bname, leafd in cache.items():
+        if bname not in pools:
+            out[bname] = leafd
+            continue
+        out[bname] = dict(leafd)
+        for key in ("k", "v"):
+            local = leafd[key]
+            full = torch.empty((mesh.data * local.shape[0],
+                                *local.shape[1:]), dtype=local.dtype,
+                               device=local.device)
+            all_gather_concat(full, local, mesh.group("data"))
+            out[bname][key] = full.view(mesh.data, *local.shape).movedim(
+                0, 1).reshape(
+                local.shape[0], mesh.data * local.shape[1],
+                *local.shape[2:])
+            got += (mesh.data - 1) * _nbytes(local)
+    return out, got
+
+
+def _slice_cache(cache: Dict, full: Dict, pools: frozenset, mesh) -> None:
+    """Inverse of ``_gather_cache``: copy this rank's chunk of each
+    written pool back into its own pool.  The allocator maps every slot's
+    pages (and its idle writes) inside its own shard's range, so the
+    chunk holds exactly this rank's slots' lines."""
+    if mesh.data <= 1 or not pools:
+        return
+    d = mesh.data_rank
+    for bname in pools:
+        for key in ("k", "v"):
+            local = cache[bname][key]
+            n = local.shape[1]
+            local.copy_(full[bname][key][:, d * n:(d + 1) * n])
+
+
+def _timed_gathers(cache, packed, lm_weight, pools, mesh, stats):
+    """Gather the step's sharded operands, timed into ``stats``."""
+    t0 = time.perf_counter()
+    full_cache, got_kv = _gather_cache(cache, pools, mesh)
+    full_packed, got_w = _gather_packed(packed, mesh)
+    lm, got_head = _gather_weight(lm_weight, mesh)
+    dev = next((t.device for leafd in cache.values()
+                for t in leafd.values()), None)
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    stats.add(time.perf_counter() - t0, got_kv + got_w + got_head)
+    return full_cache, full_packed, lm
+
+
+def build_serve_step_spmd(cfg: ModelConfig, mesh, top_k: int = 0,
+                          data_pools: Sequence[str] = ()) -> Callable:
+    """``build_serve_step`` for a rank of ``mesh``: the same signature
+    and the same tokens, from sharded storage.  ``data_pools``: the
+    paged pools whose pages are sharded over the data axis (the engine
+    passes its pool names when ``kv.shards`` equals the data extent);
+    packed weights are gathered where they are sharded over the model
+    axis (``sharding.bitmap_sharded``).  ``serve_step.stats`` is the
+    gathers' ``GatherStats``."""
+    base = build_serve_step(cfg, top_k=top_k)
+    pools = frozenset(data_pools)
+    stats = GatherStats()
+
+    def serve_step(params, cache, tokens, pos, lm_weight=None, packed=None,
+                   seeds=None, temperature=None, top_ks=None,
+                   page_tables=None):
+        full_cache, full_packed, lm = _timed_gathers(
+            cache, packed, lm_weight, pools, mesh, stats)
+        nxt, logits, full_cache = base(
+            params, full_cache, tokens, pos, lm_weight=lm,
+            packed=full_packed, seeds=seeds, temperature=temperature,
+            top_ks=top_ks, page_tables=page_tables)
+        _slice_cache(cache, full_cache, pools, mesh)
+        return nxt, logits, cache
+
+    serve_step.stats = stats
+    return serve_step
+
+
+def build_prefill_step_spmd(cfg: ModelConfig, mesh,
+                            data_pools: Sequence[str] = ()) -> Callable:
+    """``build_prefill_step`` for a rank of ``mesh``: the chunked-prefill
+    counterpart of ``build_serve_step_spmd`` (the same gathers, no
+    head)."""
+    base = build_prefill_step(cfg)
+    pools = frozenset(data_pools)
+    stats = GatherStats()
+
+    def prefill_step(params, cache, tokens, pos, lens, packed=None,
+                     page_tables=None):
+        full_cache, full_packed, _ = _timed_gathers(
+            cache, packed, None, pools, mesh, stats)
+        hidden, full_cache = base(params, full_cache, tokens, pos, lens,
+                                  packed=full_packed,
+                                  page_tables=page_tables)
+        _slice_cache(cache, full_cache, pools, mesh)
+        return hidden, cache
+
+    prefill_step.stats = stats
     return prefill_step

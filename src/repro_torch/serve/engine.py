@@ -48,8 +48,23 @@ takes the kernels' plain versions); with no card and no explicit CPU it
 raises.  Recurrent blocks (mamba, RWKV6 and its channel-mix) serve by
 the prompt walk, their per-slot state zeroed on every admission, a
 re-admission after preemption or quarantine included.  The frames
-frontend and data-sharded page pools are not ported, nor is the traffic
-ledger's compiled-HLO cross-check (the port has no HLO).
+frontend is not ported, nor is the traffic ledger's compiled-HLO
+cross-check (the port has no HLO).
+
+**Sharded serving.**  In a ``torch.distributed`` world of more than one
+rank, every rank builds the same engine and runs the same host loop (the
+same trace, the same seeded draws, so the same decisions) on the
+elastic (data, model) mesh of ``launch/mesh.py``.  With
+``model_parallel`` > 1 the stack and the vocabulary-split head are
+packed sharded (``pack_model(shards=...)``) and each rank keeps its
+model-axis part; paged KV pools shard their pages over the data axis
+(``kv_shards``, default the data extent).  The steps gather the parts
+and pool chunks around the unchanged base step
+(``launch/steps.build_serve_step_spmd``), so the tokens are the
+one-rank engine's.  Dense ``params`` stay whole on every rank.  The
+typed fallbacks ``head_shard`` and ``kv_shard`` carry the reference's
+reasons.  A world of one rank serves exactly as before; asking it for
+``model_parallel`` or ``kv_shards`` > 1 raises.
 
 One deliberate difference from the reference: a quarantined LM head is
 served dense *as it was pruned before packing* (``head_sparsity``), not
@@ -70,7 +85,12 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import build_prefill_step, build_serve_step
+from repro_torch.launch.mesh import make_elastic_mesh, world_size
+from repro_torch.launch.sharding import keep_local, keep_local_tree
+from repro_torch.launch.steps import (build_prefill_step,
+                                      build_prefill_step_spmd,
+                                      build_serve_step,
+                                      build_serve_step_spmd)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, lm_head_weight
 from repro_torch.serve.cache import SlotKVCache
@@ -86,7 +106,7 @@ from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import SlotScheduler
 from repro_torch.serve.telemetry import Clock, MetricsRegistry, Telemetry
 from repro_torch.serve.traffic import TrafficLedger
-from repro_torch.sparse.format import BitmapWeight, pack_bitmap
+from repro_torch.sparse.format import BitmapWeight, pack_bitmap, shard_bitmap
 from repro_torch.sparse.pruning import (global_l1_prune, per_tensor_prune,
                                         sparsity_of, tree_map)
 
@@ -97,16 +117,29 @@ def _head_block(d_model: int, vocab: int, cap: int = 128):
 
 
 def pack_lm_head(params, cfg: ModelConfig, sparsity: float = 0.0,
-                 cache_dense: bool = False) -> Optional[BitmapWeight]:
-    """Prune (per tensor) and pack the (D, V) LM head once for serving."""
+                 cache_dense: bool = False,
+                 shards: int = 1) -> Optional[BitmapWeight]:
+    """Prune (per tensor) and pack the (D, V) LM head once for serving.
+
+    ``shards`` > 1 asks for the vocabulary-split (column-parallel)
+    layout: the head packs against a tile of the per-shard (D, V/S)
+    slice and ``shard_bitmap`` splits it, so that each rank can keep 1/S
+    of it.  When V % S != 0, or no per-shard tile fits, it packs
+    replicated (``shard`` None; the engine records the reason)."""
     block = _head_block(cfg.d_model, cfg.vocab_size)
     if block is None:
         return None
     w = lm_head_weight(params, cfg)
     if sparsity > 0:
         w = per_tensor_prune(w, sparsity)
-    return pack_bitmap(w.float().contiguous(), block=block,
-                       cache_dense=cache_dense)
+    w = w.float().contiguous()
+    if shards > 1 and cfg.vocab_size % shards == 0:
+        sblock = _head_block(cfg.d_model, cfg.vocab_size // shards)
+        if sblock is not None:
+            return shard_bitmap(pack_bitmap(w, block=sblock,
+                                            cache_dense=cache_dense),
+                                shards, "col")
+    return pack_bitmap(w, block=block, cache_dense=cache_dense)
 
 
 def _unported(cfg: ModelConfig) -> List[str]:
@@ -180,11 +213,12 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, *, num_slots: int = 4,
                  max_len: int = 128, sparsity: float = 0.0, seed: int = 0,
-                 bitmap_head: bool = True,
+                 model_parallel: int = 1, bitmap_head: bool = True,
                  head_sparsity: Optional[float] = None,
                  stream_weights: bool = True, top_k: int = 0,
                  paged: bool = False, page_len: int = 16,
                  page_pool_tokens: Optional[int] = None,
+                 kv_shards: Optional[int] = None,
                  prefill_chunk: int = 0, prefix_reuse: bool = False,
                  preempt: bool = False, max_preempts: int = 8,
                  history: int = 512,
@@ -227,6 +261,16 @@ class ServeEngine:
         Tokens are the same with any of these on or off; each falls back
         with the reference's recorded reason when it cannot hold.
 
+        ``model_parallel`` / ``kv_shards``: sharded serving in a
+        ``torch.distributed`` world (see the module docstring): the
+        packed stack and head sharded over the model axis of the largest
+        (data, model) mesh with ``model <= model_parallel``, paged KV
+        pools over its data axis (``kv_shards`` None: the data extent;
+        a count that is not the data extent or does not divide
+        ``num_slots`` keeps the pools replicated, with a typed reason).
+        Either above 1 in a world of one rank raises.  Every rank must
+        make the same engine and drive it with the same calls.
+
         ``history``: retired requests kept for inspection.
 
         ``deadline_ms``: default per-request latency budget from the
@@ -260,6 +304,23 @@ class ServeEngine:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(missing)} not ported to the "
                 f"PyTorch engine yet")
+        if world_size() == 1 and (model_parallel > 1
+                                  or (kv_shards or 1) > 1):
+            raise ValueError(
+                f"model_parallel={model_parallel} / kv_shards={kv_shards} "
+                f"shard over the ranks of a torch.distributed world, and "
+                f"this process is a world of one rank; start the ranks "
+                f"with python -m torch.distributed.run (launch/serve.py)")
+        self.mesh = make_elastic_mesh(model_parallel, self.device.type)
+        self._spmd = self.mesh.size > 1
+        self.model_parallel = self.mesh.model
+        # every rank reads its own clock: a decision taken on it could
+        # part the ranks' host loops, and with them their collectives
+        if self._spmd and (deadline_ms is not None
+                           or ttft_budget_ms is not None):
+            raise NotImplementedError(
+                "deadline_ms / ttft_budget_ms decide on each rank's own "
+                "clock, which would part the ranks of a sharded world")
         self.cfg = cfg
         self.metrics = MetricsRegistry()
         self._clock = Clock()
@@ -303,15 +364,32 @@ class ServeEngine:
         if not stream_weights:
             self.stream_fallback = "stream_weights=False"
             self.fallbacks["stream"] = self.stream_fallback
+        # sharded: each tensor with a rule packs for the model axis, and
+        # this rank keeps its part of it (the rest is freed)
+        shards = self.mesh.model if self._spmd else 1
         self.packed: Optional[PackedModel] = (
-            pack_model(params, cache_dense=cache_dense)
+            pack_model(params, cache_dense=cache_dense, shards=shards)
             if stream_weights else None)
+        if self.packed is not None and self._spmd:
+            keep_local_tree(self.packed.blocks, self.mesh)
         self.head_sparsity = (sparsity if head_sparsity is None
                               else head_sparsity)
         self.head_fallback: Optional[str] = None
+        self.head_shard_fallback: Optional[str] = None
         if bitmap_head:
             self.lm_weight = pack_lm_head(params, cfg, self.head_sparsity,
-                                          cache_dense=cache_dense)
+                                          cache_dense=cache_dense,
+                                          shards=shards)
+            if (shards > 1 and self.lm_weight is not None
+                    and self.lm_weight.shard is None):
+                self.head_shard_fallback = (
+                    f"shard: vocab={cfg.vocab_size} not divisible by "
+                    f"{shards} shards (or no per-shard tile); head "
+                    f"stored replicated")
+                self._warn_fallback("head_shard", self.head_shard_fallback,
+                                    f"bitmap LM head stored replicated: "
+                                    f"{self.head_shard_fallback}")
+            self.lm_weight = keep_local(self.lm_weight, self.mesh)
             if self.lm_weight is None:
                 self.head_fallback = (
                     f"no (BK, BN) tile divides (d_model={cfg.d_model}, "
@@ -344,14 +422,41 @@ class ServeEngine:
             else 0
         self.prefix_reuse = prefix_reuse and not self.prefix_fallback
         self.preempt = preempt and not self.preempt_fallback
+        # data-axis KV sharding: the pools' page ids (and the slots)
+        # partition over the mesh's data axis, the data extent unless
+        # asked otherwise; a count that cannot hold keeps the pools
+        # replicated with the reference's reason
+        self.kv_shard_fallback: Optional[str] = None
+        ndata = self.mesh.data
+        kv_actual = 1
+        if self.page_len and self._spmd and ndata > 1:
+            want = ndata if kv_shards is None else int(kv_shards)
+            if want > 1 and (num_slots % want == 0 and want <= num_slots
+                             and want == ndata):
+                kv_actual = want
+            elif want > 1:
+                self.kv_shard_fallback = (
+                    f"shard: kv_shards={want} must equal the mesh data "
+                    f"axis ({ndata}) and divide num_slots={num_slots}; "
+                    f"page pools stored replicated")
+                self._warn_fallback("kv_shard", self.kv_shard_fallback,
+                                    f"paged KV pools stored replicated: "
+                                    f"{self.kv_shard_fallback}")
         self.kv = (PagedKVCache(cfg, num_slots, max_len, self.page_len,
                                 pool_tokens=page_pool_tokens,
-                                strict=not self.preempt, device=self.device)
+                                strict=not self.preempt, shards=kv_actual,
+                                local_shard=(self.mesh.data_rank
+                                             if kv_actual > 1 else None),
+                                device=self.device)
                    if self.page_len
                    else SlotKVCache(cfg, num_slots, max_len,
                                     device=self.device))
+        self._kv_data_pools = (tuple(self.kv.pools)
+                               if self.page_len and kv_actual > 1 else ())
         self.top_k_default = top_k
-        self._step_fn = build_serve_step(cfg, top_k=top_k)
+        self._step_fn = (build_serve_step_spmd(
+            cfg, self.mesh, top_k=top_k, data_pools=self._kv_data_pools)
+            if self._spmd else build_serve_step(cfg, top_k=top_k))
         self.prefill_fallback = (prefill_fallback(cfg) if prefill_chunk > 0
                                  else None)
         if self.prefill_fallback:
@@ -363,7 +468,9 @@ class ServeEngine:
         self.planner: Optional[PrefillPlanner] = (
             PrefillPlanner(num_slots, prefill_chunk) if prefill_chunk
             else None)
-        self._prefill_fn = build_prefill_step(cfg)
+        self._prefill_fn = (build_prefill_step_spmd(
+            cfg, self.mesh, data_pools=self._kv_data_pools)
+            if self._spmd else build_prefill_step(cfg))
         # engine-owned accounting lives in the metrics registry, under
         # the reference's names; the report sections render views of it
         m = self.metrics
@@ -605,6 +712,10 @@ class ServeEngine:
             raise RequestRejected(
                 f"prompt token outside the vocabulary "
                 f"[0, {self.cfg.vocab_size})")
+        if self._spmd and deadline_ms is not None:
+            raise NotImplementedError(
+                "deadline_ms decides on each rank's own clock, which "
+                "would part the ranks of a sharded world")
         if arrival <= self._steps:
             reason = self._overload_reason()
             if reason is not None:
@@ -757,8 +868,12 @@ class ServeEngine:
                 self._reclaim(requester)
 
     def _reclaim(self, requester: int) -> None:
+        # sharded pools: only a victim of the requester's shard frees
+        # pages it can use (the shards' page ranges are disjoint)
+        d = self.kv.slot_shard(requester)
         victims = [s for s in self.scheduler.active
-                   if s != requester and not self._pinned(s)]
+                   if s != requester and not self._pinned(s)
+                   and self.kv.slot_shard(s) == d]
         if not victims and self.kv.restore_held():
             # confiscated headroom and no one left to preempt: hand the
             # pages back rather than deadlock the last request
@@ -1016,9 +1131,13 @@ class ServeEngine:
                                 f"rid {r.rid}: queued past its "
                                 f"{r.deadline_ms:.0f}ms deadline"))
         # paged: the head-of-line request reserves its pages (check and
-        # commit) or queues, strictly FIFO, until retirements free them
-        fits = ((lambda r: self.kv.reserve(self._commit_tokens(r)))
-                if self.page_len else None)
+        # commit) or queues, strictly FIFO, until retirements free them.
+        # The reservation lands in the shard of the slot it will get:
+        # admit asks ``fits`` before it pops the first free slot
+        fits = ((lambda r: self.kv.reserve(
+            self._commit_tokens(r),
+            slot=(self.scheduler.free[0] if self.scheduler.free else 0)))
+            if self.page_len else None)
         for slot, req in self.scheduler.admit(now, fits=fits):
             # a re-admitted request ingests its generated tokens too
             ing = list(req.prompt) + list(req.tokens)
@@ -1026,7 +1145,7 @@ class ServeEngine:
             self._admit_counter += 1
             shared = 0
             if self.page_len:
-                blocks = (self.kv.match_prefix(ing)[1]
+                blocks = (self.kv.match_prefix(ing, slot=slot)[1]
                           if self.prefix_reuse else None)
                 shared = self.kv.admit(slot, self._commit_tokens(req),
                                        prefix=blocks)
@@ -1220,6 +1339,9 @@ class ServeEngine:
         head_dense = self.cfg.d_model * self.cfg.vocab_size * 4
         head_sparse = (self.lm_weight.hbm_bytes
                        if self.lm_weight is not None else head_dense)
+        head_sh = (self.lm_weight.shard[1]
+                   if self.lm_weight is not None
+                   and self.lm_weight.shard is not None else 1)
         # a step touches at most min(E, num_slots × top_k) experts: the
         # modeled (gather-dispatch) figure; the capacity dispatch executes
         # all E
@@ -1249,13 +1371,21 @@ class ServeEngine:
                    "shard_fallbacks": {}}
         sparse = rep["sparse_bytes_per_step"] + head_sparse
         dense = rep["dense_bytes_per_step"] + head_dense
+        # one rank's terms: a sharded head streams 1/S of its packed
+        # bytes per rank; the dense head (and a replicated packed one)
+        # is resident, and streamed, whole on every rank
+        shard_fb = dict(rep["shard_fallbacks"])
+        if self.head_shard_fallback:
+            shard_fb["lm_head"] = self.head_shard_fallback
         return {**rep, "sparse_bytes_per_step": sparse,
                 "dense_bytes_per_step": dense,
                 "reduction": dense / sparse if sparse else 1.0,
                 "device_sparse_bytes_per_step": (
-                    rep["device_sparse_bytes_per_step"] + head_sparse),
+                    rep["device_sparse_bytes_per_step"]
+                    + head_sparse // head_sh),
                 "device_dense_bytes_per_step": (
-                    rep["device_dense_bytes_per_step"] + head_dense)}
+                    rep["device_dense_bytes_per_step"] + head_dense),
+                "shard_fallbacks": shard_fb}
 
     def prefill_report(self) -> dict:
         """The prefill section: chunk-call accounting and the step split."""

@@ -301,21 +301,23 @@ class InvariantAuditor:
         """Paths whose packed arrays no longer match their pack-time
         checksum, or carry non-finite values — the quarantine list.
         The checksum copies every packed tensor to the host; the finite
-        check runs where the values lie."""
+        check runs where the values lie.  A sharded engine's rank checks
+        only its own parts, so the verdicts are OR-ed over the world
+        (``Mesh.any_rank``, in checksum order): every rank quarantines
+        the same tensors, as one controller would, and the ranks' steps
+        and collectives stay in step."""
         self.integrity_scans += 1
         eng = self.engine
         live = dict(eng.packed.leaves()) if eng.packed is not None else {}
         if eng.lm_weight is not None:
             live["lm_head"] = eng.lm_weight
-        bad = []
-        for path, bw in live.items():
-            want = self._sums.get(path)
-            if want is None:
-                continue
-            if (_checksum(bw) != want
-                    or not bool(torch.isfinite(bw.values).all())):
-                bad.append(path)
-        return bad
+        paths = list(self._sums)
+        flags = [path in live
+                 and (_checksum(live[path]) != self._sums[path]
+                      or not bool(torch.isfinite(live[path].values).all()))
+                 for path in paths]
+        flags = eng.mesh.any_rank(flags)
+        return [path for path, bad in zip(paths, flags) if bad]
 
     # ----------------------------------------------------- invariants ----
 

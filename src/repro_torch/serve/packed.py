@@ -21,7 +21,12 @@ the modeled bytes (``stream_report(activated_experts=...)`` scales them
 by ``min(E, activated) / E``, packed or not), as the reference models a
 gather dispatch.  The capacity dispatch both packages run *executes* all
 E experts every step: the modeled figure is not the executed one.
-Sharded layouts are not ported yet.
+
+``pack_model(shards=S)`` packs every tensor with a tensor-parallel rule
+(``launch/sharding.py``) in the sharded layout (``shard_bitmap``), its
+tile chosen against the per-shard slice, so that each of S ranks can
+keep 1/S of it; a tensor whose sharded dim S does not divide, or whose
+slice no tile fits, stays replicated with a typed ``shard_reason``.
 """
 from __future__ import annotations
 
@@ -30,8 +35,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.launch.sharding import packed_mode
 from repro_torch.sparse.format import (BitmapWeight, pack_bitmap_experts,
-                                       pack_bitmap_stacked)
+                                       pack_bitmap_stacked, shard_bitmap)
 
 # (component, tensor) pairs with a compressed dispatch path in the decode
 # step.  2-D entries are period-stacked projections; GROUPED entries are
@@ -95,14 +101,22 @@ class PackEntry:
     dense_bytes: int
     layout: str = "dense"
     experts: int = 0
+    #: ("col"|"row", S) when the packed tensor carries an explicit shard
+    #: axis; None for replicated or unsharded tensors
+    shard: Optional[Tuple[str, int]] = None
+    #: why a tensor with a tensor-parallel rule could not shard (stored
+    #: replicated); "" when sharded or when no rule applies
+    shard_reason: str = ""
 
 
 @dataclasses.dataclass
 class PackedModel:
-    """The packed tree (mirrors ``params["blocks"]``) and its manifest."""
+    """The packed tree (mirrors ``params["blocks"]``) and its manifest;
+    ``shards`` is the model-axis shard count it was packed for."""
 
     blocks: Dict
     manifest: List[PackEntry]
+    shards: int = 1
 
     @property
     def packed_entries(self) -> List[PackEntry]:
@@ -143,6 +157,7 @@ class PackedModel:
                 e.layout = "dense"
                 e.block = None
                 e.sparse_bytes = e.dense_bytes
+                e.shard = None
         return True
 
     def register_metrics(self, reg) -> None:
@@ -157,11 +172,15 @@ class PackedModel:
         engine adds its head term on top).  ``activated_experts`` (the
         engine passes ``num_slots × top_k``) scales router-gated expert
         stacks by ``min(E, activated) / E`` on the sparse and the dense
-        side alike."""
-        sparse = sum(entry_device_bytes(e, "sparse_bytes", activated_experts)
-                     for e in self.manifest)
-        dense = sum(entry_device_bytes(e, "dense_bytes", activated_experts)
-                    for e in self.manifest)
+        side alike.  The ``device_*`` figures are one rank's: a sharded
+        tensor counts 1/S of its bytes."""
+        def step_bytes(e: PackEntry, attr: str) -> int:
+            return int(round(getattr(e, attr)
+                             * activated_scale(e.experts,
+                                               activated_experts)))
+
+        sparse = sum(step_bytes(e, "sparse_bytes") for e in self.manifest)
+        dense = sum(step_bytes(e, "dense_bytes") for e in self.manifest)
         return {
             "sparse_bytes_per_step": sparse,
             "dense_bytes_per_step": dense,
@@ -170,24 +189,59 @@ class PackedModel:
             "fallback_tensors": len(self.fallback_entries),
             "activated_experts": activated_experts,
             "fallbacks": {e.path: e.reason for e in self.fallback_entries},
-            "shards": 1,
-            "device_sparse_bytes_per_step": sparse,
-            "device_dense_bytes_per_step": dense,
-            "shard_fallbacks": {},
+            "shards": self.shards,
+            "device_sparse_bytes_per_step": sum(
+                entry_device_bytes(e, "sparse_bytes", activated_experts)
+                for e in self.manifest),
+            "device_dense_bytes_per_step": sum(
+                entry_device_bytes(e, "dense_bytes", activated_experts)
+                for e in self.manifest),
+            "shard_fallbacks": {e.path: e.shard_reason
+                                for e in self.manifest if e.shard_reason},
         }
 
 
 def entry_device_bytes(e: PackEntry, attr: str,
                        activated: Optional[int]) -> int:
-    """One manifest row's per-step bytes on the device:
-    ``int(round(bytes × activated_scale))`` (unsharded, so the device
-    holds the whole tensor)."""
-    return int(round(getattr(e, attr) * activated_scale(e.experts,
-                                                        activated)))
+    """One manifest row's per-step bytes on one rank: the aggregate
+    accounting ``int(round(bytes × activated_scale))`` divided by the
+    tensor's shard count, so that the traffic ledger's per-rank rows sum
+    to the engine's device aggregates by construction."""
+    b = int(round(getattr(e, attr) * activated_scale(e.experts,
+                                                     activated)))
+    return b // e.shard[1] if e.shard is not None else b
+
+
+def _shard_block(comp: str, name: str, k: int, n: int, cap: int,
+                 shards: int) -> Tuple[Optional[Tuple[int, int]],
+                                       Optional[Tuple[str, int]], str]:
+    """(block, shard, shard_reason) of one tensor.  With ``shards == 1``
+    or no rule for (comp, name), ``choose_block`` and no shard.  Else the
+    tile is chosen against the per-shard slice, (k, n/S) column-parallel
+    or (k/S, n) row-parallel, so that every shard's range is whole
+    tiles; a dim S does not divide, or a slice no tile fits, stays
+    replicated with a typed reason."""
+    mode = shards > 1 and packed_mode(comp, name) or None
+    if not mode:
+        return choose_block(k, n, cap), None, ""
+    dim, dim_name = (n, "N") if mode == "col" else (k, "K")
+    if dim % shards != 0:
+        return choose_block(k, n, cap), None, (
+            f"shard: {dim_name}={dim} not divisible by {shards} shards; "
+            f"stored replicated")
+    block = (choose_block(k, n // shards, cap) if mode == "col"
+             else choose_block(k // shards, n, cap))
+    if block is None:
+        return choose_block(k, n, cap), None, (
+            f"shard: no (BK, BN) tile fits the per-shard "
+            f"{'column' if mode == 'col' else 'row'} slice; "
+            f"stored replicated")
+    return block, (mode, shards), ""
 
 
 def _pack_leaf(path: str, comp: str, name: str, w: torch.Tensor, cap: int,
-               cache_dense: bool) -> Tuple[PackEntry, Optional[BitmapWeight]]:
+               cache_dense: bool, shards: int = 1
+               ) -> Tuple[PackEntry, Optional[BitmapWeight]]:
     dense_bytes = w.numel() * w.element_size()
     sparsity = 1.0 - int(torch.count_nonzero(w)) / max(w.numel(), 1)
     key = (comp, name)
@@ -215,22 +269,27 @@ def _pack_leaf(path: str, comp: str, name: str, w: torch.Tensor, cap: int,
         # are elementwise/state/conv tensors with no matmul to compress
         return fallback("not a GEMM operand (elementwise/state/conv tensor)")
     k, n = w.shape[-2:]
-    block = choose_block(k, n, cap)
+    block, shard, shard_reason = _shard_block(comp, name, k, n, cap, shards)
     if block is None:
         return fallback(f"no (BK, BN) tile divides ({k}, {n}) with BN % 8")
     bw = pack(w, block=block, cache_dense=cache_dense)
+    if shard is not None:
+        bw = shard_bitmap(bw, shard[1], shard[0])
     return PackEntry(path=path, shape=tuple(w.shape), packed=True, reason="",
                      block=block, sparsity=sparsity,
                      sparse_bytes=bw.hbm_bytes, dense_bytes=dense_bytes,
-                     layout=layout, experts=routed), bw
+                     layout=layout, experts=routed, shard=shard,
+                     shard_reason=shard_reason), bw
 
 
-def pack_model(params: Dict, cap: int = 128,
-               cache_dense: bool = False) -> PackedModel:
+def pack_model(params: Dict, cap: int = 128, cache_dense: bool = False,
+               shards: int = 1) -> PackedModel:
     """Pack every dispatchable decode-step GEMM operand of ``params``
     (on the device the params lie on).  ``cache_dense`` attaches a dense
     rendering per tensor for the plain version on the CPU; it never
-    counts toward the modeled bytes and is never made on the card."""
+    counts toward the modeled bytes and is never made on the card.
+    ``shards`` > 1 packs every tensor with a tensor-parallel rule in the
+    sharded layout (see the module docstring)."""
     manifest: List[PackEntry] = []
     packed_blocks: Dict = {}
     for bname, bdict in params["blocks"].items():
@@ -239,9 +298,11 @@ def pack_model(params: Dict, cap: int = 128,
             packed_c: Dict = {}
             for name, w in tensors.items():
                 entry, bw = _pack_leaf(f"blocks/{bname}/{comp}/{name}",
-                                       comp, name, w, cap, cache_dense)
+                                       comp, name, w, cap, cache_dense,
+                                       shards)
                 manifest.append(entry)
                 packed_c[name] = bw
             packed_b[comp] = packed_c
         packed_blocks[bname] = packed_b
-    return PackedModel(blocks=packed_blocks, manifest=manifest)
+    return PackedModel(blocks=packed_blocks, manifest=manifest,
+                       shards=shards)

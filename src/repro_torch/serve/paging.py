@@ -1,8 +1,8 @@
 """Paged KV cache: page pools, a refcounted free-list allocator, per-slot
 page tables and a shared-prefix page cache for the serving engine.
 
-Port of ``repro/serve/paging.py`` on one device.  The host side (free
-lists, refcounts, tables, the prefix cache) is the reference's numpy
+Port of ``repro/serve/paging.py``.  The host side (free lists,
+refcounts, tables, the prefix cache) is the reference's numpy
 bookkeeping, so tables, free-list order and page ids are the
 reference's exactly; the pools are torch tensors updated in place.
 
@@ -37,10 +37,21 @@ pages at admission and ``ensure`` can never run dry.  With
 dry pool raises ``OutOfPages`` once the prefix cache is drained; the
 engine then preempts.
 
+**Data shards.**  ``shards`` > 1 partitions the slots into contiguous
+groups and each pool's page ids into per-shard ranges, each with its own
+trash page, to match a mesh's ``data`` axis: a slot maps only pages of
+its own shard; commitments, eviction and confiscated headroom are per
+shard; prefix chains are salted per shard.  A rank then needs only its
+shard's contiguous page range (``local_shard``: the pools hold just
+that range), and the sharded step gathers the pools around each call
+(``launch/steps.build_serve_step_spmd``).  Allocation stays on the host,
+the same on every rank.  ``shards == 1`` is the one-device layout.
+
 Invariants (``audit()``): each page's refcount equals its table mappings
 plus one per prefix-cache hold; every data page is free xor referenced
-xor held; no table entry maps the trash page or aliases another entry
-of the same slot; commitments sum over the slots' reservations.
+xor held, per shard; no table entry maps a trash page, another shard's
+page, or aliases another entry of the same slot; commitments sum over
+the slots' reservations, per shard.
 """
 from __future__ import annotations
 
@@ -80,6 +91,10 @@ class PagePool:
     held: List[int] = dataclasses.field(default_factory=list)
     #                      # pages confiscated from the free list
     #                      # (neither free nor referenced)
+    shards: int = 1        # data-axis shard count (1 = one device)
+    shard_pages: int = 0   # allocatable data pages per shard
+    committed_by: List[int] = dataclasses.field(default_factory=list)
+    #                      # per-shard committed pages (sums to committed)
 
 
 @dataclasses.dataclass
@@ -94,6 +109,7 @@ class PrefixBlock:
     length: int                    # tokens covered: (index + 1) * page_len
     pages: Dict[str, int]          # bname -> physical page id
     children: int = 0              # cached blocks extending this one
+    shard: int = 0                 # owning shard (pages are shard-local)
 
 
 def _chain_key(parent: Optional[bytes], tokens: Sequence[int]) -> bytes:
@@ -115,19 +131,23 @@ class PagedKVCache:
 
     ``pool_tokens`` bounds each pool to ``ceil(pool_tokens / page_len)``
     data pages (capped at the worst case ``num_slots × page_slots``,
-    the default).  ``strict`` as in the module docstring.  One device
-    only: ``shards > 1`` (data-sharded pools) raises.
+    the default; per shard, each bound divides by ``shards``).
+    ``strict`` and ``shards`` as in the module docstring;
+    ``local_shard`` (with ``shards`` > 1) keeps only that shard's page
+    range in the device pools: page id ``pg`` of shard d lies at
+    ``pg - d·(shard_pages + 1)`` there.
     """
 
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  page_len: int, pool_tokens: Optional[int] = None,
                  strict: bool = True, shards: int = 1,
+                 local_shard: Optional[int] = None,
                  device: torch.device | str | None = None):
         assert page_len > 0
-        if shards != 1:
-            raise NotImplementedError(
-                "data-sharded page pools (shards > 1) are not ported: "
-                "ROADMAP.md queue 1 item 6 (multiple GPUs)")
+        assert 1 <= shards <= num_slots and num_slots % shards == 0, \
+            (shards, num_slots)
+        assert local_shard is None or 0 <= local_shard < shards, \
+            (local_shard, shards)
         layout = paged_layout(cfg, max_len, page_len)
         if not layout:
             raise ValueError(f"{cfg.name}: no attention blocks to page")
@@ -136,8 +156,12 @@ class PagedKVCache:
         self.max_len = max_len
         self.page_len = page_len
         self.strict = strict
-        self.shards = 1
         self.resets = 0
+        self.shards = shards
+        self.local_shard = local_shard if shards > 1 else None
+        # slots partition into `shards` contiguous groups
+        self._slot_shard = (np.arange(num_slots) * shards
+                            // num_slots).astype(np.int64)
 
         kv_line = (2 * cfg.num_periods * cfg.num_kv_heads
                    * cfg.resolved_head_dim
@@ -151,15 +175,22 @@ class PagedKVCache:
                 continue
             slots = layout[bname]
             _, ring = paged_addressing(slots, page_len, blk.window)
-            worst = num_slots * slots
-            pages = worst if budget is None else max(1, min(budget, worst))
+            # each shard serves num_slots / shards slots out of its own
+            # range, so the worst case and a budget divide by the count
+            worst = (num_slots // shards) * slots
+            per = (worst if budget is None
+                   else max(1, min(-(-budget // shards), worst)))
             self.pools[bname] = PagePool(
                 bname=bname, capacity=attn_capacity(blk, max_len),
-                page_slots=slots, pool_pages=pages, window=blk.window,
-                ring=ring, line_bytes=kv_line,
-                # data ids 1..pool_pages, popped from the end (LIFO)
-                free=list(range(pages, 0, -1)),
-                table=np.zeros((num_slots, slots), np.int32))
+                page_slots=slots, pool_pages=per * shards,
+                window=blk.window, ring=ring, line_bytes=kv_line,
+                # shard d owns ids d·(per+1)+1 .. d·(per+1)+per, and id
+                # d·(per+1) is its trash page (one shard: trash 0, data
+                # 1..pool_pages), popped from the end (LIFO)
+                free=[d * (per + 1) + pg for d in range(shards - 1, -1, -1)
+                      for pg in range(per, 0, -1)],
+                table=np.zeros((num_slots, slots), np.int32),
+                shards=shards, shard_pages=per, committed_by=[0] * shards)
 
         # chains cap at the smallest pool capacity (padded), so no ring
         # wraps inside a shared region: block i is table entry i in
@@ -176,7 +207,9 @@ class PagedKVCache:
 
         self.cache = init_cache(
             cfg, num_slots, max_len, device=device, page_len=page_len,
-            pool_pages={b: p.pool_pages + 1 for b, p in self.pools.items()})
+            pool_pages={b: (p.shard_pages + 1 if self.local_shard is not None
+                            else p.pool_pages + p.shards)
+                        for b, p in self.pools.items()})
         self.device = self.cache[next(iter(self.pools))]["k"].device
         self._commit: List[Dict[str, int]] = [{} for _ in range(num_slots)]
         # device tables: mappings change on a few steps per request
@@ -193,28 +226,49 @@ class PagedKVCache:
         n = -(-max(need_tokens, 1) // self.page_len)
         return {b: min(n, p.page_slots) for b, p in self.pools.items()}
 
+    def slot_shard(self, slot: int) -> int:
+        """The shard whose page range ``slot`` allocates from."""
+        return int(self._slot_shard[slot])
+
+    def _page_shard(self, pool: PagePool, pg: int) -> int:
+        """Owning shard of a page id (trash pages included)."""
+        return pg // (pool.shard_pages + 1)
+
+    def _shard_held(self, pool: PagePool, d: int) -> int:
+        if pool.shards == 1:
+            return len(pool.held)
+        return sum(1 for pg in pool.held if self._page_shard(pool, pg) == d)
+
     def possible(self, need_tokens: int) -> bool:
-        """Can this request ever be admitted (empty engine)?"""
-        return all(n <= self.pools[b].pool_pages
+        """Can this request ever be admitted (empty engine)?  A request
+        is admitted into one shard's range, so the bound is per shard."""
+        return all(n <= self.pools[b].shard_pages
                    for b, n in self.pages_for(need_tokens).items())
 
-    def fits(self, need_tokens: int) -> bool:
-        """Can this request be admitted now without risking mid-flight
-        exhaustion for anyone already committed?  Confiscated pages
-        shrink the usable pool until restored."""
-        return all(self.pools[b].committed + n
-                   <= self.pools[b].pool_pages - len(self.pools[b].held)
+    def fits(self, need_tokens: int, slot: int = 0) -> bool:
+        """Can this request be admitted now, into ``slot``'s shard,
+        without risking mid-flight exhaustion for anyone already
+        committed there?  Confiscated pages shrink the usable shard
+        until restored."""
+        d = self.slot_shard(slot)
+        return all(self.pools[b].committed_by[d] + n
+                   <= self.pools[b].shard_pages
+                   - self._shard_held(self.pools[b], d)
                    for b, n in self.pages_for(need_tokens).items())
 
-    def reserve(self, need_tokens: int) -> bool:
+    def reserve(self, need_tokens: int, slot: int = 0) -> bool:
         """Check and commit in one step (the scheduler's admission gate),
         so several admissions in one pass cannot all pass a stale check.
-        ``admit`` then binds the reservation to its slot.  Strict mode
-        passes the worst-case need, preemptible mode the live ingest."""
-        if not self.fits(need_tokens):
+        ``admit`` then binds the reservation to its slot; ``slot`` must
+        be that slot or one of its shard, so that the commitment lands
+        in the right shard.  Strict mode passes the worst-case need,
+        preemptible mode the live ingest."""
+        if not self.fits(need_tokens, slot=slot):
             return False
+        d = self.slot_shard(slot)
         for b, n in self.pages_for(need_tokens).items():
             self.pools[b].committed += n
+            self.pools[b].committed_by[d] += n
         return True
 
     def admit(self, slot: int, need_tokens: int,
@@ -239,19 +293,36 @@ class PagedKVCache:
 
     # ------------------------------------------------------- allocator ----
 
-    def _alloc(self, bname: str, pool: PagePool) -> int:
-        """Pop a fresh page (refcount 1), draining cache-only prefix
-        pages first when the free list is dry."""
-        while not pool.free and self.evict_one(prefer=bname):
+    def _has_free(self, pool: PagePool, d: int) -> bool:
+        if pool.shards == 1:
+            return bool(pool.free)
+        return any(self._page_shard(pool, pg) == d for pg in pool.free)
+
+    def _pop_free(self, pool: PagePool, d: int) -> int:
+        """Pop shard ``d``'s most recently freed page (a plain LIFO pop
+        on one shard)."""
+        if pool.shards == 1:
+            return pool.free.pop()
+        for i in range(len(pool.free) - 1, -1, -1):
+            if self._page_shard(pool, pool.free[i]) == d:
+                return pool.free.pop(i)
+        raise IndexError(f"shard {d}: no free page")
+
+    def _alloc(self, bname: str, pool: PagePool, shard: int = 0) -> int:
+        """Pop a fresh page off ``shard``'s range (refcount 1), draining
+        that shard's cache-only prefix pages first when it is dry."""
+        while not self._has_free(pool, shard) and \
+                self.evict_one(prefer=bname, shard=shard):
             pass
-        if not pool.free:
+        if not self._has_free(pool, shard):
             if self.strict:
                 raise AssertionError(
-                    f"{bname}: free list empty with {pool.committed} "
-                    f"committed of {pool.pool_pages} and no evictable "
-                    f"prefix — commitment invariant broken")
+                    f"{bname}: shard {shard} free list empty with "
+                    f"{pool.committed_by[shard]} committed of "
+                    f"{pool.shard_pages} and no evictable prefix — "
+                    f"commitment invariant broken")
             raise OutOfPages(bname)
-        pg = pool.free.pop()
+        pg = self._pop_free(pool, shard)
         pool.ref[pg] = 1
         pool.in_use += 1
         pool.peak = max(pool.peak, pool.in_use)
@@ -270,11 +341,17 @@ class PagedKVCache:
               pi: int) -> None:
         """Copy-on-write: give ``slot`` a private copy of its shared
         entry ``pi`` before it writes there.  The copy is issued now, on
-        the stream the step's write will follow it on."""
+        the stream the step's write will follow it on (by the rank that
+        holds the slot's shard)."""
+        d = self.slot_shard(slot)
         src = int(pool.table[slot, pi])
-        dst = self._alloc(bname, pool)
-        for t in self.cache[bname].values():
-            t[:, dst].copy_(t[:, src])
+        dst = self._alloc(bname, pool, d)
+        if self.local_shard in (None, d):
+            base = (0 if self.local_shard is None
+                    else d * (pool.shard_pages + 1))
+            for kk in ("k", "v"):
+                t = self.cache[bname][kk]
+                t[:, dst - base].copy_(t[:, src - base])
         pool.table[slot, pi] = dst
         self._deref(bname, pool, src)
         self.forks += 1
@@ -286,14 +363,15 @@ class PagedKVCache:
         when unmapped, fork when shared, nothing when owned.  With the
         list dry an eviction is tried first: dropping the cache's hold
         on this very page may resolve the share with no copy."""
+        d = self.slot_shard(slot)
         pg = int(pool.table[slot, pi])
         if pg == 0:
-            pool.table[slot, pi] = self._alloc(bname, pool)
+            pool.table[slot, pi] = self._alloc(bname, pool, d)
             self._dev_tables = None
             return
         while pool.ref[pg] > 1:
-            if not pool.free:
-                if self.evict_one(prefer=bname):
+            if not self._has_free(pool, d):
+                if self.evict_one(prefer=bname, shard=d):
                     continue
                 if self.strict:
                     raise AssertionError(
@@ -335,35 +413,42 @@ class PagedKVCache:
         cache (or another slot) still holds stay resident for the next
         request with the same prompt."""
         self._dev_tables = None
+        d = self.slot_shard(slot)
         for b, pool in self.pools.items():
             row = pool.table[slot]
             for pg in [int(p) for p in row[row != 0]]:
                 self._deref(b, pool, pg)
             row[:] = 0
             pool.committed -= self._commit[slot].get(b, 0)
+            pool.committed_by[d] -= self._commit[slot].get(b, 0)
         self._commit[slot] = {}
 
     # ---------------------------------------------------- prefix cache ----
 
-    def _chain(self, tokens: Sequence[int], upto: int) -> List[bytes]:
+    def _chain(self, tokens: Sequence[int], upto: int,
+               shard: int = 0) -> List[bytes]:
         """Chain keys of the fully covered shareable blocks of
-        ``tokens[:upto]``."""
+        ``tokens[:upto]``, salted per shard (shard 0 keeps the unsalted
+        keys), so that a prompt cached in one shard's range never
+        matches from another."""
         limit = min(upto, self.shareable_tokens)
-        keys, parent = [], None
+        keys, parent = [], bytes([shard]) if shard else None
         for i in range(limit // self.page_len):
             parent = _chain_key(
                 parent, tokens[i * self.page_len:(i + 1) * self.page_len])
             keys.append(parent)
         return keys
 
-    def match_prefix(self, tokens: Sequence[int]
+    def match_prefix(self, tokens: Sequence[int], slot: int = 0
                      ) -> Tuple[int, List[PrefixBlock]]:
-        """Longest cached chain matching the prompt's leading blocks,
-        capped at ``len(tokens) - 1`` (the last prompt token always goes
-        through the first decode step) and at ``shareable_tokens``.
-        Matched entries are LRU-touched.  Returns (tokens, blocks)."""
+        """Longest cached chain (in ``slot``'s shard) matching the
+        prompt's leading blocks, capped at ``len(tokens) - 1`` (the last
+        prompt token always goes through the first decode step) and at
+        ``shareable_tokens``.  Matched entries are LRU-touched.  Returns
+        (tokens, blocks)."""
         blocks: List[PrefixBlock] = []
-        for key in self._chain(tokens, len(tokens) - 1):
+        for key in self._chain(tokens, len(tokens) - 1,
+                               self.slot_shard(slot)):
             entry = self.prefix.get(key)
             if entry is None:
                 break
@@ -400,8 +485,9 @@ class PagedKVCache:
         has wrapped there and low entries no longer hold their blocks."""
         if upto > self.shareable_tokens:
             return
+        shard = self.slot_shard(slot)
         parent: Optional[bytes] = None
-        for i, key in enumerate(self._chain(tokens, upto)):
+        for i, key in enumerate(self._chain(tokens, upto, shard)):
             entry = self.prefix.get(key)
             if entry is not None:
                 self.prefix.move_to_end(key)
@@ -417,19 +503,23 @@ class PagedKVCache:
                 self.pools[b].ref[pg] += 1
             self.prefix[key] = PrefixBlock(
                 key=key, parent=parent, index=i,
-                length=(i + 1) * self.page_len, pages=pages)
+                length=(i + 1) * self.page_len, pages=pages, shard=shard)
             if parent is not None:
                 self.prefix[parent].children += 1
             parent = key
 
-    def evict_one(self, prefer: Optional[str] = None) -> bool:
+    def evict_one(self, prefer: Optional[str] = None,
+                  shard: Optional[int] = None) -> bool:
         """Evict one leaf prefix block in LRU order.  ``prefer`` picks,
         among leaves, the oldest whose page in that pool is cache-only
-        (so the eviction frees a page there), else the oldest leaf.
-        False when nothing is evictable."""
+        (so the eviction frees a page there), else the oldest leaf;
+        ``shard`` keeps to that shard's blocks (another shard's pages
+        cannot serve its slots).  False when nothing is evictable."""
         chosen = None
         for key, e in self.prefix.items():
             if e.children:
+                continue
+            if shard is not None and e.shard != shard:
                 continue
             if prefer is not None and self.pools[prefer].ref.get(
                     e.pages[prefer], 0) == 1:
@@ -461,17 +551,26 @@ class PagedKVCache:
     def confiscate(self, n: int) -> int:
         """Pull up to ``n`` free pages per pool out of circulation
         (neither free nor referenced), newest first.  Strict mode takes
-        only uncommitted headroom, so ``ensure`` still cannot fail.
-        Returns the pages held in total."""
+        only each shard's uncommitted headroom, so ``ensure`` still
+        cannot fail.  Returns the pages held in total."""
         taken = 0
         for pool in self.pools.values():
-            room = (max(0, pool.pool_pages - pool.committed
-                        - len(pool.held))
-                    if self.strict else len(pool.free))
-            take = min(n, room, len(pool.free))
-            for _ in range(take):
-                pool.held.append(pool.free.pop())
-            taken += take
+            if self.strict:
+                room = [max(0, pool.shard_pages - pool.committed_by[d]
+                            - self._shard_held(pool, d))
+                        for d in range(pool.shards)]
+            else:
+                room = [len(pool.free)] * pool.shards
+            took = 0
+            i = len(pool.free) - 1
+            while took < n and i >= 0:
+                d = self._page_shard(pool, pool.free[i])
+                if room[d] > 0:
+                    room[d] -= 1
+                    pool.held.append(pool.free.pop(i))
+                    took += 1
+                i -= 1
+            taken += took
         return taken
 
     def restore_held(self) -> int:
@@ -488,11 +587,14 @@ class PagedKVCache:
 
     def audit(self, commit_check: bool = True) -> None:
         """Allocator invariants (raises ``AuditViolation``): exact
-        refcounts; free xor referenced xor held, no double free, and
-        ``free + referenced + held == pool_pages``; no entry maps the
-        trash page or aliases another entry of its slot; ``in_use``
-        counts the referenced pages; commitments sum the slots'."""
+        refcounts; free xor referenced xor held, no double free, and per
+        shard ``free + referenced + held == shard_pages``; no entry maps a
+        trash page or another shard's page (a prefix block holds pages of
+        its own shard) or aliases another entry of its slot; ``in_use``
+        counts the referenced pages; commitments sum the slots', per
+        shard and overall."""
         for b, pool in self.pools.items():
+            span = pool.shard_pages + 1       # a shard's range, trash too
             refs: Dict[int, int] = {}
             for slot in range(self.num_slots):
                 row = pool.table[slot]
@@ -500,10 +602,22 @@ class PagedKVCache:
                 if len(live) != len(set(live)):
                     raise AuditViolation(
                         f"{b}: slot {slot} table aliases a page: {live}")
+                d = self.slot_shard(slot)
+                stray = [pg for pg in live
+                         if self._page_shard(pool, pg) != d]
+                if stray:
+                    raise AuditViolation(
+                        f"{b}: slot {slot} (shard {d}) maps pages from "
+                        f"another shard: {stray}")
                 for pg in live:
                     refs[pg] = refs.get(pg, 0) + 1
             for e in self.prefix.values():
-                refs[e.pages[b]] = refs.get(e.pages[b], 0) + 1
+                pg = e.pages[b]
+                if self._page_shard(pool, pg) != e.shard:
+                    raise AuditViolation(
+                        f"{b}: prefix block of shard {e.shard} holds "
+                        f"page {pg} of shard {self._page_shard(pool, pg)}")
+                refs[pg] = refs.get(pg, 0) + 1
             if refs != pool.ref:
                 drift = {pg: (refs.get(pg), pool.ref.get(pg))
                          for pg in set(refs) | set(pool.ref)
@@ -518,38 +632,60 @@ class PagedKVCache:
                     f"{b}: page both free and referenced: "
                     f"{sorted(set(free) & set(refs))}")
             ids = set(free) | set(refs) | set(pool.held)
-            if not all(0 < pg <= pool.pool_pages for pg in ids):
+            if not all(0 < pg < pool.shards * span and pg % span != 0
+                       for pg in ids):
                 raise AuditViolation(
                     f"{b}: page id out of range (trash page leaked?)")
-            if len(free) + len(refs) + len(pool.held) != pool.pool_pages:
-                raise AuditViolation(
-                    f"{b}: conservation broken — {len(free)} free + "
-                    f"{len(refs)} referenced + {len(pool.held)} held "
-                    f"!= {pool.pool_pages}")
+            for d in range(pool.shards):
+                nf = sum(1 for pg in free if self._page_shard(pool, pg) == d)
+                nr = sum(1 for pg in refs if self._page_shard(pool, pg) == d)
+                nh = self._shard_held(pool, d)
+                if nf + nr + nh != pool.shard_pages:
+                    raise AuditViolation(
+                        f"{b}: shard {d} conservation broken — {nf} free "
+                        f"+ {nr} referenced + {nh} held "
+                        f"!= {pool.shard_pages}")
             if pool.in_use != len(refs):
                 raise AuditViolation(
                     f"{b}: in_use={pool.in_use} != {len(refs)} referenced")
             if commit_check:
-                want = sum(c.get(b, 0) for c in self._commit)
-                if pool.committed != want:
+                for d in range(pool.shards):
+                    want = sum(c.get(b, 0)
+                               for slot, c in enumerate(self._commit)
+                               if self.slot_shard(slot) == d)
+                    if pool.committed_by[d] != want:
+                        raise AuditViolation(
+                            f"{b}: shard {d} committed="
+                            f"{pool.committed_by[d]} != {want} summed "
+                            f"over slot reservations")
+                    if pool.committed_by[d] > pool.shard_pages:
+                        raise AuditViolation(
+                            f"{b}: shard {d} over-committed "
+                            f"{pool.committed_by[d]} of "
+                            f"{pool.shard_pages}")
+                if pool.committed != sum(pool.committed_by):
                     raise AuditViolation(
-                        f"{b}: committed={pool.committed} != {want} "
-                        f"summed over slot reservations")
-                if pool.committed > pool.pool_pages:
-                    raise AuditViolation(
-                        f"{b}: over-committed {pool.committed} of "
-                        f"{pool.pool_pages}")
+                        f"{b}: committed={pool.committed} != per-shard "
+                        f"sum {sum(pool.committed_by)}")
 
     # ------------------------------------------------------------ step ----
 
     def tables(self) -> Dict[str, torch.Tensor]:
         """The step's page tables on the device, int64: uploaded once
         after a mapping changed, the same tensors otherwise (no upload
-        and no host sync on steps that change no mapping)."""
+        and no host sync on steps that change no mapping).  Page ids are
+        global: sharded pools' unmapped entries (host 0) point at the
+        slot's own shard's trash page (shard 0's is page 0), so that
+        idle lanes write inside their shard's range."""
         if self._dev_tables is None:
-            self._dev_tables = {
-                b: torch.from_numpy(p.table).to(self.device, torch.int64)
-                for b, p in self.pools.items()}
+            self._dev_tables = {}
+            for b, p in self.pools.items():
+                table = p.table
+                if self.shards > 1:
+                    trash = self._slot_shard * (p.shard_pages + 1)
+                    table = np.where(table == 0, trash[:, None], table)
+                self._dev_tables[b] = torch.from_numpy(
+                    np.ascontiguousarray(table)).to(self.device, torch.int64)
         return self._dev_tables
 
     # --------------------------------------------------------- reports ----
@@ -572,8 +708,9 @@ class PagedKVCache:
         reg.gauge("prefix.cached_blocks", lambda: len(self.prefix))
 
     def reserved_kv_bytes(self) -> int:
-        """Bytes reserved for KV pages, trash page included."""
-        return sum((p.pool_pages + 1) * self.page_len * p.line_bytes
+        """Bytes reserved for KV pages over every shard, trash pages
+        included (one per shard)."""
+        return sum((p.pool_pages + p.shards) * self.page_len * p.line_bytes
                    for p in self.pools.values())
 
     def contiguous_kv_bytes(self) -> int:
@@ -620,7 +757,7 @@ class PagedKVCache:
             "pools": {b: {"pages": p.pool_pages, "in_use": p.in_use,
                           "peak": p.peak, "page_slots": p.page_slots,
                           "ring": p.ring, "held": len(p.held),
-                          "shard_pages": p.pool_pages}
+                          "shard_pages": p.shard_pages}
                       for b, p in self.pools.items()},
             "reserved_kv_bytes": reserved,
             "contiguous_kv_bytes": contiguous,

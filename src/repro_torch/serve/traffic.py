@@ -184,7 +184,11 @@ class TrafficLedger:
         head_dense = cfg.d_model * cfg.vocab_size * _F32
         head_sparse = (eng.lm_weight.hbm_bytes
                        if eng.lm_weight is not None else head_dense)
-        add("head", head_sparse, head_dense)
+        head_sh = (eng.lm_weight.shard[1]
+                   if eng.lm_weight is not None
+                   and eng.lm_weight.shard is not None else 1)
+        add("head", head_sparse, head_dense,
+            head_sparse // head_sh, head_dense)
         self._roles = roles
         return roles
 
@@ -339,7 +343,8 @@ class TrafficLedger:
                             weights += leaf.numel() * leaf.element_size()
                         elif bw.dense_cache is not None:
                             weights += (bw.dense_cache.numel()
-                                        * bw.dense_cache.element_size())
+                                        * bw.dense_cache.element_size()
+                                        * bw.parts)
                         else:
                             weights += bw.hbm_bytes
         else:
@@ -398,7 +403,8 @@ class TrafficLedger:
                 "sparse_bytes_per_step": sparse,
                 "dense_bytes_per_step": dense,
                 "reduction": dense / sparse if sparse else 1.0,
-                "shards": 1,
+                "shards": (eng.packed.shards
+                           if eng.packed is not None else 1),
                 "device_sparse_bytes_per_step": sum(
                     r["device_sparse_bytes"] for r in roles.values()),
                 "device_dense_bytes_per_step": sum(

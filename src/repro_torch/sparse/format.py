@@ -10,6 +10,11 @@ Packing runs in torch on whatever device the weight lies on, with the
 reference's algorithm: budget = the largest tile non-zero count,
 ``row_start`` = exclusive row cumsum, values at ``row_start + rank``.
 The packed tensors are byte-equal to the reference's numpy pack.
+
+The sharded layout (``shard_bitmap``) splits a packed weight's N (col)
+or K (row) tile axis into S ranges behind an explicit shard axis, as
+the reference does; a rank keeps one shard (``keep_part``) and
+``gather_bitmap`` reassembles the whole weight over a process group.
 """
 from __future__ import annotations
 
@@ -37,20 +42,47 @@ class BitmapWeight:
     shape: Tuple[int, int]
     block: Tuple[int, int]
     dense_cache: Optional[torch.Tensor] = None   # (K, N)
+    #: sharded layout: ``("col"|"row", S)`` when every tensor carries an
+    #: explicit shard axis (extent S) just before its tile dims
+    #: (``shard_bitmap``); ``shape`` and ``block`` stay the full logical
+    #: geometry
+    shard: Optional[Tuple[str, int]] = None
+    #: one rank's share of a sharded weight: the tensors then hold only
+    #: ``shard_slice(w, part)``'s (``keep_part``); ``gather_bitmap``
+    #: reassembles the whole weight
+    part: Optional[int] = None
 
     @property
     def budget(self) -> int:
         return self.values.shape[-1]
 
     @property
-    def hbm_bytes(self) -> int:
+    def parts(self) -> int:
+        """How many ranks' tensors make the whole weight: S for a rank's
+        part of an S-way sharded weight, else 1."""
+        return self.shard[1] if self.part is not None else 1
+
+    @property
+    def resident_bytes(self) -> int:
+        """Bytes of packed tensors this object holds (a part: one
+        rank's share)."""
         return sum(t.numel() * t.element_size()
                    for t in (self.packed_bits, self.values, self.row_start))
+
+    @property
+    def hbm_bytes(self) -> int:
+        """Bytes of the whole packed weight (every part of a sharded
+        one), as the reference counts a sharded array."""
+        return self.resident_bytes * self.parts
 
     @property
     def dense_bytes(self) -> int:
         stacks = (math.prod(self.values.shape[:-3])
                   if self.values.dim() > 3 else 1)
+        if self.shard is not None and self.part is None:
+            # the explicit shard axis inflates the leading dims, but the
+            # S shards together hold exactly one logical matrix
+            stacks //= self.shard[1]
         return (stacks * self.shape[0] * self.shape[1]
                 * self.values.element_size())
 
@@ -73,7 +105,8 @@ class BitmapWeight:
             packed_bits=self.packed_bits[p], values=self.values[p],
             row_start=self.row_start[p], shape=self.shape, block=self.block,
             dense_cache=(self.dense_cache[p]
-                         if self.dense_cache is not None else None))
+                         if self.dense_cache is not None else None),
+            shard=self.shard, part=self.part)
 
 
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
@@ -238,6 +271,146 @@ def pack_bitmap_experts(w: torch.Tensor, block: Tuple[int, int],
 def unpack_bitmap_experts(bw: BitmapWeight) -> torch.Tensor:
     """Dense (P, E, K, N) rendering of an expert-stacked BitmapWeight."""
     return unpack_bitmap_stacked(bw)
+
+
+# --------------------------------------------------------------------------
+# Sharded layout: the N (column-parallel) or K (row-parallel) tile axis is
+# split into S contiguous shard ranges and re-exposed as an explicit shard
+# axis just before each tensor's tile dims, so that each rank can keep one
+# shard's bitmap, values and row starts.  ``shape`` / ``block`` keep the
+# full logical geometry.  The tensors are the reference's, byte for byte.
+
+#: trailing per-tile dims of each tensor (the shard axis sits just before
+#: these; leading stack axes, period P and expert E, come first)
+_TILE_ND = {"packed_bits": 4, "values": 3, "row_start": 3, "dense_cache": 2}
+
+
+def _shard_off(mode: str, tile_nd: int) -> int:
+    """Offset from ndim of the tile axis a mode splits: col splits the NT
+    axis (the second tile dim, or N itself for ``dense_cache``), row
+    splits KT (or K)."""
+    return tile_nd - 1 if mode == "col" else tile_nd
+
+
+def _split_leaf(leaf, tile_nd: int, mode: str, shards: int):
+    """Split the sharded tile axis into ``shards`` contiguous ranges and
+    move the new shard axis to just before the tile dims."""
+    if leaf is None:
+        return None
+    nd = leaf.dim()
+    ax = nd - _shard_off(mode, tile_nd)
+    size = leaf.shape[ax]
+    assert size % shards == 0, (tuple(leaf.shape), ax, shards)
+    r = leaf.reshape(*leaf.shape[:ax], shards, size // shards,
+                     *leaf.shape[ax + 1:])
+    return r.movedim(ax, nd - tile_nd).contiguous()
+
+
+def _merge_leaf(leaf, tile_nd: int, mode: str):
+    """Inverse of ``_split_leaf``: fold the shard axis back into the tile
+    axis it was split from (shard ranges are contiguous, so this is a
+    reshape after the move)."""
+    if leaf is None:
+        return None
+    n = leaf.dim()
+    j = n - _shard_off(mode, tile_nd) - 1
+    m = leaf.movedim(n - tile_nd - 1, j)
+    return m.reshape(*m.shape[:j], m.shape[j] * m.shape[j + 1],
+                     *m.shape[j + 2:])
+
+
+def _leaves(bw: BitmapWeight):
+    return {name: getattr(bw, name) for name in _TILE_ND}
+
+
+def shard_bitmap(bw: BitmapWeight, shards: int, mode: str) -> BitmapWeight:
+    """Re-lay a packed BitmapWeight out with an explicit shard axis.
+
+    ``mode="col"`` splits the output-column tile axis (NT): each shard
+    owns a contiguous N range (wq/wk/wv/w_gate/w_up, the vocabulary-split
+    head); ``mode="row"`` splits the contraction tile axis (KT): each
+    shard owns a K range and the partial products sum (wo/w_down).
+    Lossless: each shard's tensors are exact slices of the unsharded
+    pack."""
+    assert mode in ("col", "row"), mode
+    assert bw.shard is None, bw.shard
+    if shards == 1:
+        return bw
+    return dataclasses.replace(
+        bw, **{name: _split_leaf(leaf, _TILE_ND[name], mode, shards)
+               for name, leaf in _leaves(bw).items()},
+        shard=(mode, shards))
+
+
+def unshard_bitmap(bw: BitmapWeight) -> BitmapWeight:
+    """Fold the explicit shard axis back in: the exact unsharded pack."""
+    if bw.shard is None:
+        return bw
+    assert bw.part is None, "a rank's part: gather_bitmap it"
+    mode, _ = bw.shard
+    return dataclasses.replace(
+        bw, **{name: _merge_leaf(leaf, _TILE_ND[name], mode)
+               for name, leaf in _leaves(bw).items()},
+        shard=None)
+
+
+def keep_part(bw: BitmapWeight, part: int) -> BitmapWeight:
+    """One rank's share of a sharded weight: shard ``part``'s tensors,
+    copied out contiguous, so that the whole weight can be freed."""
+    assert bw.shard is not None and bw.part is None
+    assert 0 <= part < bw.shard[1], (part, bw.shard)
+
+    def take(leaf, tile_nd):
+        if leaf is None:
+            return None
+        return leaf.select(leaf.dim() - tile_nd - 1, part).clone(
+            memory_format=torch.contiguous_format)
+
+    return dataclasses.replace(
+        bw, **{name: take(leaf, _TILE_ND[name])
+               for name, leaf in _leaves(bw).items()}, part=part)
+
+
+def all_gather_concat(out: torch.Tensor, local: torch.Tensor,
+                      group) -> None:
+    """Every rank of ``group``'s ``local`` concatenated along dim 0 into
+    ``out``, in rank order (``all_gather_into_tensor``).  The bytes
+    travel as uint8, whatever the type; a gloo group gathers a card's
+    tensors through host memory, as gloo does."""
+    import torch.distributed as dist
+    src = local.contiguous().view(torch.uint8)
+    dst = out.view(torch.uint8)
+    if src.is_cuda and dist.get_backend(group) == "gloo":
+        host = torch.empty(dst.shape, dtype=torch.uint8)
+        dist.all_gather_into_tensor(host, src.cpu(), group=group)
+        dst.copy_(host)
+    else:
+        dist.all_gather_into_tensor(dst, src, group=group)
+
+
+def gather_bitmap(bw: BitmapWeight, group) -> BitmapWeight:
+    """All-gather every rank's part over ``group`` (the ranks holding
+    parts 0 .. S-1, in that order) and fold the shard axis away: the
+    whole unsharded BitmapWeight, byte-equal to ``unshard_bitmap`` of
+    the sharded pack.  A weight that is not a part passes through."""
+    if bw.part is None:
+        return bw
+    mode, shards = bw.shard
+
+    def g(leaf, tile_nd):
+        if leaf is None:
+            return None
+        out = torch.empty((shards * leaf.shape[0], *leaf.shape[1:]),
+                          dtype=leaf.dtype, device=leaf.device)
+        all_gather_concat(out, leaf.contiguous(), group)
+        stacked = out.view(shards, *leaf.shape).movedim(
+            0, leaf.dim() - tile_nd)
+        return _merge_leaf(stacked, tile_nd, mode)
+
+    return dataclasses.replace(
+        bw, **{name: g(leaf, _TILE_ND[name])
+               for name, leaf in _leaves(bw).items()},
+        shard=None, part=None)
 
 
 @dataclasses.dataclass

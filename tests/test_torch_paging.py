@@ -331,8 +331,12 @@ def test_audit_catches_drift_like_the_reference():
 
 def test_shards_and_device_are_explicit(monkeypatch):
     cfg = pt_smoke("olmo-1b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        PagedKVCache(cfg, 2, 32, 8, shards=2, device="cpu")
+    # data shards partition the slots; a count that does not divide
+    # them is refused, as in the reference
+    kv = PagedKVCache(cfg, 2, 32, 8, shards=2, device="cpu")
+    assert kv.shards == 2 and [kv.slot_shard(s) for s in (0, 1)] == [0, 1]
+    with pytest.raises(AssertionError):
+        PagedKVCache(cfg, 3, 32, 8, shards=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaDevice):
         PagedKVCache(cfg, 2, 32, 8)

@@ -218,6 +218,49 @@ def test_phase8_rehearsal_on_cpu(smoke, monkeypatch, capsys,
     assert text.count("max |K2 - scan_attention|") == 2
 
 
+@pytest.mark.parametrize("broken", [False, True])
+def test_phase2_sharded_cases_launch_once_per_shard(smoke, monkeypatch,
+                                                    one_torch_thread,
+                                                    broken):
+    """Phase 2's sharded cases on the CPU, the K1 / K1g wrappers replaced
+    by counting plain versions: each product launches once per shard and
+    agrees with the unsharded weight's plain version; a kernel that
+    loses the last shard's output fails the phase."""
+    from repro_torch.kernels import LAUNCHES, bitmap_spmm
+
+    def counting(name, plain):
+        def fake(x, w, out_dtype=None):
+            LAUNCHES[name] += 1
+            out = plain(x, w, out_dtype=out_dtype)
+            # the last column shard's slice, or the last row shard's
+            # partial product, comes back zero
+            lost = broken and LAUNCHES[name] % 2 == 0
+            return out.zero_() if lost else out
+        return fake
+
+    monkeypatch.setattr(bitmap_spmm, "bitmap_spmm",
+                        counting("bitmap_spmm", ref.bitmap_spmm_ref))
+    monkeypatch.setattr(bitmap_spmm, "bitmap_spmm_grouped",
+                        counting("bitmap_spmm_grouped",
+                                 ref.bitmap_spmm_grouped_ref))
+    monkeypatch.setattr(smoke, "sync", lambda: None)
+    gen, cpu = torch.Generator().manual_seed(0), torch.device("cpu")
+    cases = (("qkvo", 256, 256, "col"), ("down", 512, 256, "row"))
+    groups = (("gate_up", 64, 32, "col"), ("down", 32, 64, "row"))
+    if broken:
+        with pytest.raises(AssertionError, match="max |kernel - plain|"):
+            smoke.sharded_against_plain(cpu, gen, cases, (1, 4))
+        return
+    before = dict(LAUNCHES)
+    err = smoke.sharded_against_plain(cpu, gen, cases, (1, 4))
+    err_g = smoke.sharded_against_plain(cpu, gen, groups, (1, 4), groups=5)
+    assert err < 1e-3 and err_g < 1e-3
+    # 2 cases x 2 rows x 2 types, 2 shards each
+    assert LAUNCHES["bitmap_spmm"] - before["bitmap_spmm"] == 16
+    assert (LAUNCHES["bitmap_spmm_grouped"]
+            - before["bitmap_spmm_grouped"]) == 16
+
+
 def test_train_flops_counts_olmo_at_full_width(smoke):
     """6·N·T plus the attention term, and the remat recompute apart, for
     olmo-1b at batch 4 x seq 512 (1.18 B parameters)."""
