@@ -178,9 +178,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    one-rank run's exactly, the gathered stack and head byte-equal to
    the unsharded packs (CRC32), 113 K1 launches per decode step on each
    rank, each rank's resident packed bytes about half the one-rank
-   figure (manifest and ``memory_allocated``); it prints the step wall,
-   the gather's ms and bytes received per step, the peak memory per
-   rank and the backend.  A rank that fails fails the run.
+   figure (manifest and ``memory_allocated``); the dense params stored
+   by ``param_specs`` (each rank holds the whole tree less half its
+   model-sharded leaves) and, with no quarantine, no dense leaf gathered;
+   it prints the step wall, the gather's ms and bytes received per step
+   (the dense part apart), the resident packed and dense bytes and the
+   peak memory per rank and the backend.  A rank that fails fails the
+   run.
+10. Sharded training over ``torch.distributed``: full-width olmo-1b
+   (phase 8a's seeded init, ``global_l1_prune(0.5)`` and its masks,
+   batch 4 x 512 from ``synth_batch``, AdamW lr 3e-4, warmup 2) in a
+   world of 2 ranks (this script with ``--phase10-rank``): gloo, both
+   ranks on this card (and NCCL, a card per rank, where the host has 2
+   cards or more).  Rank 0 first trains the one-rank step twice from the
+   same state.  (a) (data 1, model 2), 2 steps
+   (``build_train_step_spmd``): losses and the gathered params bit-equal
+   to the one-rank run's; (b) (data 2, model 1), ZeRO-1 moments, 2
+   steps: losses within 1e-3 and params within 5e-3 (the bf16 backward
+   over half batches rounds differently).  Both: every pruned element
+   exactly 0 on every rank, the resident params about half of one
+   rank's in (a) and the moments about half in (b).  Then
+   ``compressed_psum_grads`` over the 2 ranks on a 16 M-element float32
+   gradient against the CPU formula within one quantum.  It prints per
+   run the step ms, the gather and all-reduce ms and bytes received per
+   step, the resident bytes and peak memory per rank and the backend.
+   Training reaches no kernel: the kernels line gains no launch.  A rank
+   that fails fails the run.
 
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
 its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
@@ -2613,7 +2636,10 @@ def phase9_rank(spec_path: str, out_dir: str) -> int:
         rec = {"held_bytes": torch.cuda.memory_allocated(device) - before,
                "resident": _resident(eng), "mesh": eng.mesh.shape,
                "shards": eng.weight_stream_report()["shards"],
-               "kv_shards": eng.kv.shards if eng.page_len else 1}
+               "kv_shards": eng.kv.shards if eng.page_len else 1,
+               "dense_resident": eng.resident_dense_bytes(),
+               "dense_gather": sorted("/".join(p)
+                                      for p in eng.dense_gather)}
         if run["checksum"]:
             full, _ = _gather_packed(eng.packed.blocks, eng.mesh)
             rec["stack_crc"] = [_checksum(bw) for bw in (
@@ -2644,10 +2670,12 @@ def phase9_rank(spec_path: str, out_dir: str) -> int:
 
 
 def _spawn_world(backend: str, spec: dict, world: int = 2,
-                 timeout: int = 600) -> list:
-    """Start ``world`` ranks of phase 9 with ``backend`` and wait for
-    them; a rank that fails fails the phase.  Returns each rank's
-    record."""
+                 timeout: int = 600, command=None, label: str = "phase 9"
+                 ) -> list:
+    """Start ``world`` ranks of ``command`` (phase 9's by default) with
+    ``backend`` and wait for them; a rank that fails fails the phase.
+    Returns each rank's record."""
+    command = RANK_COMMAND if command is None else command
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -2659,7 +2687,7 @@ def _spawn_world(backend: str, spec: dict, world: int = 2,
                "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
                "OMP_NUM_THREADS": "1"}
         procs = [subprocess.Popen(
-            [*RANK_COMMAND, str(spec_path), tmp],
+            [*command, str(spec_path), tmp],
             env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=ROOT,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
@@ -2670,7 +2698,7 @@ def _spawn_world(backend: str, spec: dict, world: int = 2,
                 p.kill()
         for r, (p, log) in enumerate(zip(procs, logs)):
             if p.returncode != 0:
-                raise AssertionError(f"phase 9 rank {r} ({backend}) "
+                raise AssertionError(f"{label} rank {r} ({backend}) "
                                      f"exited {p.returncode}:\n"
                                      f"{log[-4000:]}")
         return [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
@@ -2713,7 +2741,8 @@ def sharded_phase(cfg, device, smi: str, requests: int = 4,
         eng = _p9_engine(cfg, params, device, dict(run, mp=1))
         sync()
         rec = {"held_bytes": torch.cuda.memory_allocated() - before,
-               "resident": _resident(eng)}
+               "resident": _resident(eng),
+               "dense_resident": eng.resident_dense_bytes()}
         if run["checksum"]:
             rec["stack_crc"] = [_checksum(bw)
                                 for _, bw in eng.packed.leaves()]
@@ -2762,6 +2791,13 @@ def sharded_phase(cfg, device, smi: str, requests: int = 4,
                     assert 0.45 <= share <= 0.55, (tag, share)
                     saved = one["held_bytes"] - r["held_bytes"]
                     assert saved >= 0.4 * one["resident"], (tag, saved)
+                    # the dense params by param_specs: the block matrices
+                    # halve (the embedding and norms stay replicated)
+                    dshare = r["dense_resident"] / one["dense_resident"]
+                    assert 0.5 < dshare <= 0.6, (tag, dshare)
+                    assert r["dense_gather"] == [], tag
+                    assert r["gather"][
+                        "dense_bytes_received_per_call"] == 0, tag
                 else:
                     assert r["kv_shards"] == 2 and r["mesh"] == {
                         "data": 2, "model": 1}, tag
@@ -2775,9 +2811,14 @@ def sharded_phase(cfg, device, smi: str, requests: int = 4,
                       f"{1e3 * one['wall_s'] / one['decode_steps']:.1f}"
                       f" ms); gather {g['ms_per_call']:.1f} ms and "
                       f"{g['bytes_received_per_call'] / 1e6:.1f} MB "
-                      f"received per decode step; resident packed "
+                      f"received per decode step (dense params "
+                      f"{g['dense_bytes_received_per_call'] / 1e6:.3f} MB"
+                      f"); resident packed "
                       f"{r['resident'] / 1e9:.3f} GB (one rank "
-                      f"{one['resident'] / 1e9:.3f}), held by the engine "
+                      f"{one['resident'] / 1e9:.3f}), resident dense "
+                      f"{r['dense_resident'] / 2**30:.2f} GiB (one rank "
+                      f"{one['dense_resident'] / 2**30:.2f}), held by the "
+                      f"engine "
                       f"{r['held_bytes'] / 2**30:.2f} GiB (one rank "
                       f"{one['held_bytes'] / 2**30:.2f}); peak "
                       f"{r['peak'] / 2**30:.2f} GiB; backend {backend}")
@@ -2794,6 +2835,262 @@ def sharded_phase(cfg, device, smi: str, requests: int = 4,
                               "decode_steps"]})
     return paths
 
+
+
+# ----------------------------------------------------------- phase 10 ----
+# Sharded training: a world of 2 ranks, each its own process, training
+# full-width olmo-1b through the gather-then-compute step.
+P10_RUNS = ({"label": "a: data 1 x model 2", "mp": 2, "exact": True},
+            {"label": "b: data 2 x model 1, ZeRO-1 moments", "mp": 1,
+             "exact": False})
+P10 = dict(batch=4, seq=512, steps=2, sparsity=0.5, seed=0,
+           compress_elems=16 * 2**20)
+RANK10_COMMAND = [sys.executable, str(ROOT / "chip_smoke.py"),
+                  "--phase10-rank"]
+
+
+def _host(tree):
+    from repro_torch.sparse.pruning import tree_map
+    return tree_map(lambda _, t: t.to("cpu", copy=True), tree)
+
+
+def _to(tree, device):
+    from repro_torch.sparse.pruning import tree_map
+    return tree_map(lambda _, t: t.to(device), tree)
+
+
+def _p10_opt(steps: int):
+    from repro_torch.train import optimizer as opt_lib
+    return opt_lib.OptConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=steps)
+
+
+def _p10_compression(mesh, device) -> dict:
+    """``compressed_psum_grads`` over the data axis on a seeded 16 M
+    float32 gradient (rank r's gradient is the weight times r + 1),
+    against the formula on the CPU."""
+    from repro_torch.train.compression import (compressed_psum_grads,
+                                               init_error_fb, quantize_int8)
+    n = P10["compress_elems"]
+    gen = torch.Generator(device=device).manual_seed(P10["seed"] + 10)
+    w = torch.randn(n, generator=gen, device=device)
+    rows = torch.arange(1, mesh.data + 1, dtype=torch.float32,
+                        device=device)[:, None]
+    fn = compressed_psum_grads(lambda p, b: {"w": p["w"] * b[0]}, mesh)
+    err = init_error_fb({"w": w}, mesh.data)
+    fn({"w": w}, rows, err)                          # warm
+    sync()
+    t = time.perf_counter()
+    grads, resid = fn({"w": w}, rows, err)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t)
+    # the CPU formula: sum_q x mean_scale / n over every rank's gradient
+    wc = w.cpu()
+    qs = [quantize_int8(wc * float(r + 1)) for r in range(mesh.data)]
+    mean = sum(s for _, s in qs) / mesh.data
+    want = sum(q.to(torch.int32) for q, _ in qs).float() * mean / mesh.data
+    quantum = float(mean / mesh.data)
+    err_max = float((grads["w"].cpu() - want).abs().max())
+    assert err_max <= quantum, (err_max, quantum)
+    assert resid["w"].shape == (1, n)
+    return {"ms": ms, "max_abs_err": err_max, "quantum": quantum,
+            "int32_wire_bytes": 4 * n, "float32_wire_bytes": 4 * n,
+            "int8_payload_bytes": n, "elems": n}
+
+
+def phase10_rank(spec_path: str, out_dir: str) -> int:
+    """One rank of phase 10 (``chip_smoke.py --phase10-rank SPEC OUT``,
+    started by ``sharded_training_phase``): joins the world, draws and
+    prunes olmo-1b's params from phase 8a's seed, (rank 0) trains the
+    one-rank baseline, then trains each run sharded, checks it against
+    the baseline and writes what it saw to OUT/rank<r>.json."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import init_world, make_elastic_mesh
+    from repro_torch.launch.steps import (build_train_step,
+                                          build_train_step_spmd)
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import init_params
+    from repro_torch.sparse.pruning import (global_l1_prune, tree_items,
+                                            tree_map)
+    from repro_torch.train import optimizer as opt_lib
+    spec = json.load(open(spec_path))
+    device = init_world(spec["backend"], "cuda")
+    rank = dist.get_rank()
+    cfg = get_config(spec["arch"])
+    steps = P10["steps"]
+    gen = torch.Generator(device=device).manual_seed(P10["seed"])
+    params = global_l1_prune(init_params(gen, cfg, device=device),
+                             P10["sparsity"])
+    masks = tree_map(lambda _, p: p != 0, params)
+    init_host, masks_host = _host(params), _host(masks)
+    batches = [to_device(synth_batch(cfg, DataConfig(
+        global_batch=P10["batch"], seq_len=P10["seq"], seed=0), i), device)
+        for i in range(steps)]
+    out = {"rank": rank, "device": str(device), "runs": []}
+    base_losses, base = None, None
+    if rank == 0:
+        step = build_train_step(cfg, _p10_opt(steps), prune_masks=masks)
+        opt = opt_lib.init(params)
+        base_losses, base_ms = [], []
+        for b in batches:
+            sync()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            base_losses.append(float(m["loss"]))
+            sync()
+            base_ms.append(1e3 * (time.perf_counter() - t))
+        # the first step warms the allocator and the libraries
+        out["one_rank_ms"] = base_ms
+        base = _host(params)
+        del opt, step
+    del params, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    for run in P10_RUNS:
+        mesh = make_elastic_mesh(run["mp"], "cuda")
+        pspecs = shd.param_specs(cfg, mesh)
+        ospecs = shd.opt_specs(cfg, mesh)
+        parts = _to(shd.shard_tree(init_host, pspecs, mesh), device)
+        mparts = _to(shd.shard_tree(masks_host, pspecs, mesh), device)
+        # zero moments of this rank's ZeRO-1 part shapes (views for the
+        # shapes: no copy)
+        flat_os = dict(tree_items(ospecs["m"]))
+        opt = _to(opt_lib.init(tree_map(
+            lambda p, t: shd.shard_leaf(t, flat_os[p], mesh), init_host)),
+            device)
+        step = build_train_step_spmd(cfg, _p10_opt(steps), mesh,
+                                     prune_masks=mparts)
+        sync()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        losses, times = [], []
+        for b in batches:
+            sync()
+            t = time.perf_counter()
+            parts, opt, m = step(parts, opt, b)
+            sync()
+            times.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+        flat_m = dict(tree_items(mparts))
+        pruned_zero = all(not bool(t[~flat_m[p]].any())
+                          for p, t in tree_items(parts))
+        rec = {"label": run["label"], "mesh": mesh.shape, "losses": losses,
+               "step_ms": [1e3 * x for x in times],
+               "gather": step.stats["gather"].report(),
+               "all_reduce": step.stats["all_reduce"].report(),
+               "peak": torch.cuda.max_memory_allocated(device),
+               "held": held, "pruned_zero": pruned_zero,
+               "param_resident": shd.resident_bytes(parts),
+               "param_whole": shd.whole_bytes(parts, pspecs, mesh),
+               "moment_resident": shd.resident_bytes(opt["m"])
+               + shd.resident_bytes(opt["v"]),
+               "moment_whole": 2 * shd.whole_bytes(
+                   parts, pspecs, mesh)}
+        # the whole params, leaf by leaf, against the one-rank run's
+        flat_ps = dict(tree_items(pspecs))
+        flat_base = dict(tree_items(base)) if rank == 0 else {}
+        equal, worst = True, 0.0
+        for p, t in tree_items(parts):
+            whole = shd.gather_leaf(t, flat_ps[p], mesh)
+            if rank == 0:
+                want = flat_base[p].to(device)
+                equal = equal and torch.equal(whole, want)
+                worst = max(worst, float((whole - want).abs().max()))
+            del whole
+        if rank == 0:
+            rec.update(params_equal=equal, params_max_abs_diff=worst,
+                       one_rank_losses=base_losses)
+        out["runs"].append(rec)
+        del parts, mparts, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh = make_elastic_mesh(1, "cuda")
+    out["compression"] = _p10_compression(mesh, device)
+    with open(pathlib.Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_training_phase(cfg, smi: str) -> None:
+    """Phase 10: sharded training over ``torch.distributed`` (the module
+    docstring).  Each rank is a process of its own, which builds and
+    checks its runs; a rank that fails fails the phase."""
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
+                           else [])
+    print(f"phase 10 on {smi}: {torch.cuda.device_count()} card(s); "
+          f"backends {backends} (gloo puts both ranks on cuda:0 and moves "
+          f"every collective through host memory"
+          + ("" if len(backends) > 1 else "; NCCL needs a card per rank, "
+             "so it does not run on this host") + ")")
+    for backend in backends:
+        t0 = time.perf_counter()
+        ranks = _spawn_world(backend, {"arch": cfg.name}, timeout=900,
+                             command=RANK10_COMMAND, label="phase 10")
+        print(f"phase 10 {backend}: 2 ranks in "
+              f"{time.perf_counter() - t0:.1f}s (start, init, prune, the "
+              f"one-rank baseline, both runs)")
+        base = ranks[0]
+        for i, run in enumerate(P10_RUNS):
+            r0 = base["runs"][i]
+            tag = f"phase 10 {backend} ({run['label']})"
+            want = r0["one_rank_losses"]
+            if run["exact"]:
+                assert r0["losses"] == want, (tag, r0["losses"], want)
+                assert r0["params_equal"], (tag, r0["params_max_abs_diff"])
+            else:
+                assert max(abs(a - b) for a, b in
+                           zip(r0["losses"], want)) < 1e-3, (tag, want)
+                assert r0["params_max_abs_diff"] < 5e-3, (
+                    tag, r0["params_max_abs_diff"])
+            for res in ranks:
+                r = res["runs"][i]
+                rtag = f"{tag} rank {res['rank']}"
+                assert r["losses"] == r0["losses"], rtag
+                assert all(math.isfinite(v) for v in r["losses"]), rtag
+                assert r["pruned_zero"], rtag
+                pshare = r["param_resident"] / r["param_whole"]
+                mshare = r["moment_resident"] / r["moment_whole"]
+                if run["mp"] > 1:
+                    assert 0.5 <= pshare <= 0.6, (rtag, pshare)
+                else:
+                    assert 0.5 <= mshare <= 0.6, (rtag, mshare)
+                g, a = r["gather"], r["all_reduce"]
+                received = (g["bytes_received_per_call"]
+                            + a["bytes_received_per_call"])
+                print(f"  {rtag} on {res['device']}: step "
+                      f"{median(r['step_ms']):.1f} ms (steps "
+                      + ", ".join(f"{x:.1f}" for x in r["step_ms"])
+                      + "; one rank's steps, the first cold: "
+                      + ", ".join(f"{x:.1f}" for x in base["one_rank_ms"])
+                      + f"); gather {g['ms_per_call']:.1f} ms and "
+                      f"all-reduce {a['ms_per_call']:.1f} ms per step; "
+                      f"received {received / 1e9:.3f} GB per step (gather "
+                      f"{g['bytes_received_per_call'] / 1e9:.3f}, ring "
+                      f"all-reduce {a['bytes_received_per_call'] / 1e9:.3f})"
+                      f"; resident params {r['param_resident'] / 2**30:.2f}"
+                      f" of {r['param_whole'] / 2**30:.2f} GiB ({pshare:.3f})"
+                      f", moments {r['moment_resident'] / 2**30:.2f} of "
+                      f"{r['moment_whole'] / 2**30:.2f} GiB ({mshare:.3f});"
+                      f" peak {r['peak'] / 2**30:.2f} GiB ("
+                      f"{r['held'] / 2**30:.2f} held before the steps); "
+                      f"backend {backend}")
+            print(f"  {tag}: losses {r0['losses']} against one rank's "
+                  f"{want}; params "
+                  + ("bit-equal" if r0["params_equal"] else
+                     f"within {r0['params_max_abs_diff']:.3g}")
+                  + "; pruned elements 0 on every rank")
+        c = base["compression"]
+        print(f"  phase 10 {backend} compressed_psum_grads over 2 ranks, "
+              f"{c['elems']} float32 elements: {c['ms']:.1f} ms, max |card"
+              f" - CPU formula| {c['max_abs_err']:.3g} (one quantum "
+              f"{c['quantum']:.3g}); int32 wire {c['int32_wire_bytes'] / 1e6:.1f}"
+              f" MB per rank, as float32's {c['float32_wire_bytes'] / 1e6:.1f}"
+              f" MB (the int8 payload itself {c['int8_payload_bytes'] / 1e6:.1f}"
+              f" MB)")
 
 def phase(label: str, t0: float) -> float:
     now = time.perf_counter()
@@ -2875,7 +3172,10 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     t = phase("phase 8, training on the card", t)
 
     sharded = sharded_phase(olmo_cfg, device, smi)
-    phase("phase 9, sharded serving over torch.distributed", t)
+    t = phase("phase 9, sharded serving over torch.distributed", t)
+
+    sharded_training_phase(olmo_cfg, smi)
+    phase("phase 10, sharded training over torch.distributed", t)
 
     def record(name, paths, times, scope, **extra):
         ms, plain_ms, b_ms, by, lib_ms = times
@@ -2932,6 +3232,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
 def main() -> int:
     if sys.argv[1:2] == ["--phase9-rank"]:
         return phase9_rank(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--phase10-rank"]:
+        return phase10_rank(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on the card",
               file=sys.stderr)

@@ -81,7 +81,11 @@ def synth_batch(model_cfg: ModelConfig, cfg: DataConfig, step: int,
 
 
 class Prefetcher:
-    """Background-thread prefetch of ``synth_batch`` outputs."""
+    """Background-thread prefetch of ``synth_batch`` outputs.
+
+    In a sharded training world every rank's prefetcher yields the whole
+    step-indexed batch (host 0 of 1), and the train step takes the rank's
+    rows (``launch/steps.build_train_step_spmd``)."""
 
     def __init__(self, model_cfg: ModelConfig, cfg: DataConfig,
                  start_step: int = 0, depth: int = 2,

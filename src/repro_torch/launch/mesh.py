@@ -1,4 +1,4 @@
-"""The serving engine's (data, model) mesh over ``torch.distributed`` ranks.
+"""The (data, model) mesh over ``torch.distributed`` ranks.
 
 Port of ``repro/launch/mesh.py``'s ``make_elastic_mesh``: the largest
 (data, model) mesh with ``model <= model_parallel`` that divides the
@@ -22,14 +22,16 @@ BACKENDS = ("nccl", "gloo")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (data, model) mesh: the engine shards packed weights over
-    ``model`` and paged KV pools over ``data``."""
+    """A (data, model) mesh: parameters shard over ``model`` (the
+    engine's packed weights too), the batch, the Adam moments (ZeRO-1)
+    and paged KV pools over ``data``."""
 
     data: int = 1
     model: int = 1
     rank: int = 0
     backend: Optional[str] = None
     device_mesh: object = None          # torch DeviceMesh; None: one rank
+    axis_names = ("data", "model")      # a class constant, not a field
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -52,6 +54,24 @@ class Mesh:
         (``"data"``) of the mesh."""
         return self.device_mesh.get_group(axis)
 
+    def _host_side(self) -> torch.device:
+        """Where a small control tensor lives for a collective: the
+        rank's card under nccl, the CPU under gloo."""
+        return (torch.device("cuda", torch.cuda.current_device())
+                if self.backend == "nccl" else torch.device("cpu"))
+
+    def from_root(self, values: List[float]) -> List[float]:
+        """Rank 0's ``values`` on every rank (one broadcast over the
+        world), so that a decision taken on a reading of rank 0's (its
+        clock) is the same on every rank.  A world of one rank returns
+        ``values`` as they are."""
+        if self.size == 1:
+            return list(values)
+        t = torch.tensor(values, dtype=torch.float64,
+                         device=self._host_side())
+        dist.broadcast(t, src=0)
+        return t.tolist()
+
     def any_rank(self, flags: List[bool]) -> List[bool]:
         """Each flag OR-ed over every rank of the world, so that a
         decision one rank's own state prompts is taken on every rank
@@ -59,10 +79,8 @@ class Mesh:
         A world of one rank returns ``flags`` as they are."""
         if self.size == 1 or not flags:
             return list(flags)
-        dev = (torch.device("cuda", torch.cuda.current_device())
-               if self.backend == "nccl" else torch.device("cpu"))
         t = torch.tensor([int(f) for f in flags], dtype=torch.int32,
-                         device=dev)
+                         device=self._host_side())
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return [bool(v) for v in t.tolist()]
 

@@ -7,7 +7,8 @@ update, with masked-gradient sparse training and gradient accumulation.
 The serve step is greedy argmax by default; slots with a temperature
 above 0 sample from ``softmax(logits / T)``, optionally truncated to
 their own top-k.  ``build_serve_step_spmd`` / ``build_prefill_step_spmd``
-run those steps on a rank of a sharded world (gather, then compute).
+and ``build_train_step_spmd`` run those steps on a rank of a sharded
+world (gather, then compute).
 """
 from __future__ import annotations
 
@@ -16,11 +17,15 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.launch.sharding import bitmap_sharded
+from repro_torch.launch.sharding import (batch_specs, bitmap_sharded,
+                                         gather_leaf, opt_specs,
+                                         param_specs, shard_leaf,
+                                         sharded_on)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, lm_head_weight,
                                       loss_fn, prefill_hidden)
-from repro_torch.sparse.format import all_gather_concat, gather_bitmap
+from repro_torch.sparse.format import (all_gather_concat, all_reduce_sum,
+                                       gather_bitmap)
 from repro_torch.sparse.pruning import tree_items, tree_map
 from repro_torch.train import optimizer as opt_lib
 
@@ -42,6 +47,29 @@ def loss_and_grads(params: Dict, batch: Dict, cfg: ModelConfig):
     return loss.detach(), metrics, tree_map(lambda p, _: flat[p], params)
 
 
+def accumulated_grads(params: Dict, batch: Dict, cfg: ModelConfig,
+                      accum_steps: int = 1) -> Tuple[Dict, Dict]:
+    """(grads, metrics) of one train step's batch.  ``accum_steps`` > 1
+    splits it into that many equal microbatches (consecutive rows),
+    sums their float32 gradients and divides by the count; the loss is
+    the token-weighted mean."""
+    if accum_steps == 1:
+        _, metrics, grads = loss_and_grads(params, batch, cfg)
+        return grads, metrics
+    gsum, lsum, csum = {}, 0, 0
+    for i in range(accum_steps):
+        micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
+                              *v.shape[1:])[i]
+                 for k, v in batch.items()}
+        _, m, g = loss_and_grads(params, micro, cfg)
+        for p, t in tree_items(g):
+            gsum[p] = t.float() + gsum.get(p, 0)
+        lsum = lsum + m["loss"] * m["tokens"]
+        csum = csum + m["tokens"]
+    grads = tree_map(lambda p, _: gsum[p] / accum_steps, params)
+    return grads, {"loss": lsum / csum.clamp_min(1), "tokens": csum}
+
+
 def build_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
                      prune_masks: Optional[Dict] = None,
                      accum_steps: int = 1) -> Callable:
@@ -51,28 +79,12 @@ def build_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
     ``prune_masks`` (a tree shaped as params, bool or 0/1) multiplies the
     gradients before the update and the parameters after it, so pruned
     weights stay exactly zero (masked-gradient sparse training).
-    ``accum_steps`` > 1 splits the batch into that many equal
-    microbatches (consecutive rows), sums their float32 gradients and
-    divides by the count; the loss is the token-weighted mean.  Metrics:
-    ``loss``, ``tokens``, ``grad_norm``, ``lr`` (tensors on the device).
+    ``accum_steps``: ``accumulated_grads``.  Metrics: ``loss``,
+    ``tokens``, ``grad_norm``, ``lr`` (tensors on the device).
     """
 
     def train_step(params, opt_state, batch):
-        if accum_steps == 1:
-            _, metrics, grads = loss_and_grads(params, batch, cfg)
-        else:
-            gsum, lsum, csum = {}, 0, 0
-            for i in range(accum_steps):
-                micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
-                                      *v.shape[1:])[i]
-                         for k, v in batch.items()}
-                _, m, g = loss_and_grads(params, micro, cfg)
-                for p, t in tree_items(g):
-                    gsum[p] = t.float() + gsum.get(p, 0)
-                lsum = lsum + m["loss"] * m["tokens"]
-                csum = csum + m["tokens"]
-            grads = tree_map(lambda p, _: gsum[p] / accum_steps, params)
-            metrics = {"loss": lsum / csum.clamp_min(1), "tokens": csum}
+        grads, metrics = accumulated_grads(params, batch, cfg, accum_steps)
         if prune_masks is not None:
             masks = dict(tree_items(prune_masks))
             with torch.no_grad():                # the grads are this step's
@@ -196,18 +208,27 @@ def build_prefill_step(cfg: ModelConfig) -> Callable:
 # ---------------------------------------------------------------- SPMD ----
 # Sharded serving: the decode and prefill steps above, run by every rank
 # of the engine's (data, model) mesh.  Each rank stores its part of every
-# model-sharded packed weight (``sparse.format.keep_part``) and its shard
-# of each data-sharded paged KV pool (``PagedKVCache(local_shard=...)``).
-# The step is gather-then-compute: the parts and pool chunks are
-# all-gathered, the *unchanged* base step runs on the whole weights and
+# model-sharded packed weight (``sparse.format.keep_part``), of every
+# dense parameter (``param_specs``) and its shard of each data-sharded
+# paged KV pool (``PagedKVCache(local_shard=...)``).  The step is
+# gather-then-compute: the parts and pool chunks are all-gathered, with
+# the dense leaves the step reads (those served dense: no packed form, or
+# quarantined), the *unchanged* base step runs on the whole weights and
 # pools, and each rank keeps its own chunk of the written pools.  So the
 # tokens are those of the one-rank step by construction, while each rank
-# stores 1/S of the packed stack.  The gathered copies live for one call.
+# stores 1/S of every model-sharded tensor.  The gathered copies live for
+# one call.
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class GatherStats:
-    """What the sharded steps' gathers cost on this rank: calls, host
-    seconds (the gathers, synchronised on a card) and bytes received."""
+    """What a sharded step's collectives cost on this rank: calls, host
+    seconds (synchronised on a card), bytes received, and the part of
+    them that is dense parameters."""
 
     def __init__(self):
         self.reset()
@@ -216,16 +237,20 @@ class GatherStats:
         self.calls = 0
         self.seconds = 0.0
         self.bytes_received = 0
+        self.dense_bytes_received = 0
 
-    def add(self, seconds: float, received: int) -> None:
+    def add(self, seconds: float, received: int, dense: int = 0) -> None:
         self.calls += 1
         self.seconds += seconds
         self.bytes_received += received
+        self.dense_bytes_received += dense
 
     def report(self) -> Dict:
         n = max(self.calls, 1)
         return {"calls": self.calls, "ms_per_call": 1e3 * self.seconds / n,
-                "bytes_received_per_call": self.bytes_received // n}
+                "bytes_received_per_call": self.bytes_received // n,
+                "dense_bytes_received_per_call":
+                    self.dense_bytes_received // n}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -256,6 +281,24 @@ def _gather_packed(tree, mesh) -> Tuple[Optional[Dict], int]:
                 out[bname][comp][name], n = _gather_weight(bw, mesh)
                 got += n
     return out, got
+
+
+def _gather_model(tree: Dict, specs: Dict, mesh,
+                  paths: Optional[frozenset] = None) -> Tuple[Dict, int]:
+    """(the tree with its model-sharded leaves gathered whole, bytes
+    received).  ``paths`` limits the gather to those leaves (the others
+    stay this rank's parts, which the caller does not read); a bool leaf
+    travels as bits."""
+    got = 0
+    whole = {}
+    for p, t in tree_items(tree):
+        if (paths is None or p in paths) and sharded_on(specs[p], "model",
+                                                        mesh):
+            whole[p] = gather_leaf(t, specs[p], mesh, ("model",))
+            got += (mesh.model - 1) * (-(-t.numel() // 8)
+                                       if t.dtype == torch.bool
+                                       else _nbytes(t))
+    return tree_map(lambda p, t: whole.get(p, t), tree), got
 
 
 def _gather_cache(cache: Dict, pools: frozenset, mesh) -> Tuple[Dict, int]:
@@ -299,40 +342,48 @@ def _slice_cache(cache: Dict, full: Dict, pools: frozenset, mesh) -> None:
             local.copy_(full[bname][key][:, d * n:(d + 1) * n])
 
 
-def _timed_gathers(cache, packed, lm_weight, pools, mesh, stats):
+def _timed_gathers(params, cache, packed, lm_weight, pools, mesh, specs,
+                   dense, stats):
     """Gather the step's sharded operands, timed into ``stats``."""
     t0 = time.perf_counter()
     full_cache, got_kv = _gather_cache(cache, pools, mesh)
     full_packed, got_w = _gather_packed(packed, mesh)
     lm, got_head = _gather_weight(lm_weight, mesh)
+    view, got_dense = _gather_model(params, specs, mesh, dense)
     dev = next((t.device for leafd in cache.values()
                 for t in leafd.values()), None)
-    if dev is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    stats.add(time.perf_counter() - t0, got_kv + got_w + got_head)
-    return full_cache, full_packed, lm
+    if dev is not None:
+        _sync(dev)
+    stats.add(time.perf_counter() - t0,
+              got_kv + got_w + got_head + got_dense, got_dense)
+    return view, full_cache, full_packed, lm
 
 
 def build_serve_step_spmd(cfg: ModelConfig, mesh, top_k: int = 0,
                           data_pools: Sequence[str] = ()) -> Callable:
     """``build_serve_step`` for a rank of ``mesh``: the same signature
-    and the same tokens, from sharded storage.  ``data_pools``: the
-    paged pools whose pages are sharded over the data axis (the engine
-    passes its pool names when ``kv.shards`` equals the data extent);
-    packed weights are gathered where they are sharded over the model
-    axis (``sharding.bitmap_sharded``).  ``serve_step.stats`` is the
-    gathers' ``GatherStats``."""
+    and the same tokens, from sharded storage.  ``params`` holds this
+    rank's parts by ``param_specs(cfg, mesh)``; ``dense`` (a keyword of
+    the step) names the model-sharded leaves the step reads densely,
+    which it gathers (the engine's ``dense_gather``).  ``data_pools``:
+    the paged pools whose pages are sharded over the data axis (the
+    engine passes its pool names when ``kv.shards`` equals the data
+    extent); packed weights are gathered where they are sharded over the
+    model axis (``sharding.bitmap_sharded``).  ``serve_step.stats`` is
+    the gathers' ``GatherStats``."""
     base = build_serve_step(cfg, top_k=top_k)
     pools = frozenset(data_pools)
+    specs = dict(tree_items(param_specs(cfg, mesh)))
     stats = GatherStats()
 
     def serve_step(params, cache, tokens, pos, lm_weight=None, packed=None,
                    seeds=None, temperature=None, top_ks=None,
-                   page_tables=None):
-        full_cache, full_packed, lm = _timed_gathers(
-            cache, packed, lm_weight, pools, mesh, stats)
+                   page_tables=None, dense=frozenset()):
+        view, full_cache, full_packed, lm = _timed_gathers(
+            params, cache, packed, lm_weight, pools, mesh, specs, dense,
+            stats)
         nxt, logits, full_cache = base(
-            params, full_cache, tokens, pos, lm_weight=lm,
+            view, full_cache, tokens, pos, lm_weight=lm,
             packed=full_packed, seeds=seeds, temperature=temperature,
             top_ks=top_ks, page_tables=page_tables)
         _slice_cache(cache, full_cache, pools, mesh)
@@ -349,13 +400,14 @@ def build_prefill_step_spmd(cfg: ModelConfig, mesh,
     head)."""
     base = build_prefill_step(cfg)
     pools = frozenset(data_pools)
+    specs = dict(tree_items(param_specs(cfg, mesh)))
     stats = GatherStats()
 
     def prefill_step(params, cache, tokens, pos, lens, packed=None,
-                     page_tables=None):
-        full_cache, full_packed, _ = _timed_gathers(
-            cache, packed, None, pools, mesh, stats)
-        hidden, full_cache = base(params, full_cache, tokens, pos, lens,
+                     page_tables=None, dense=frozenset()):
+        view, full_cache, full_packed, _ = _timed_gathers(
+            params, cache, packed, None, pools, mesh, specs, dense, stats)
+        hidden, full_cache = base(view, full_cache, tokens, pos, lens,
                                   packed=full_packed,
                                   page_tables=page_tables)
         _slice_cache(cache, full_cache, pools, mesh)
@@ -363,3 +415,134 @@ def build_prefill_step_spmd(cfg: ModelConfig, mesh,
 
     prefill_step.stats = stats
     return prefill_step
+
+
+# ------------------------------------------------------ SPMD training ----
+# Sharded training: every rank of the (data, model) mesh holds its part
+# of each parameter and mask (``param_specs``: the model axis) and of
+# each Adam moment (``opt_specs``: ZeRO-1 over the data axis too).  The
+# step is gather-then-compute around the unchanged ``loss_and_grads``:
+# the parts are gathered over ``model`` into whole parameters, each data
+# rank takes its rows of the batch, the gradients are summed over
+# ``data``, and each rank updates the block of its part that its moments
+# cover, clipped by the whole gradient's norm, then gathers the blocks
+# over ``data`` to rebuild its part.
+
+
+def _batch_rows(batch: Dict, cfg: ModelConfig, mesh
+                ) -> Optional[Tuple[int, int]]:
+    """This data rank's rows [r0, r1) of the batch (``batch_specs``), or
+    None when the batch is not split: a data axis of 1, or rows that do
+    not divide over it (every rank then takes the whole batch)."""
+    b = batch["targets"].shape[0]
+    if mesh.data == 1 or batch_specs(cfg, mesh, b)("targets")[0] is None:
+        return None
+    per = b // mesh.data
+    return mesh.data_rank * per, (mesh.data_rank + 1) * per
+
+
+def _split_grads(params: Dict, batch: Dict, cfg: ModelConfig,
+                 rows: Tuple[int, int], accum_steps: int):
+    """(grads, loss sum) of this rank's rows.  Each microbatch's part is
+    weighted by its share of that microbatch's live targets (counted over
+    the whole batch, which every rank has), so that the sum over the data
+    ranks is the one-rank step's token-weighted gradient, whatever the
+    ranks' numbers of live targets."""
+    r0, r1 = rows
+    m = batch["targets"].shape[0] // accum_steps
+    live = (batch["targets"] >= 0).reshape(accum_steps, -1).sum(1).float()
+    gsum, lsum = {}, 0
+    for i in range(accum_steps):
+        a, e = max(r0, i * m), min(r1, (i + 1) * m)
+        if a >= e:
+            continue
+        _, met, g = loss_and_grads(params, {k: v[a:e]
+                                            for k, v in batch.items()}, cfg)
+        w = met["tokens"] / live[i].clamp_min(1)
+        for p, t in tree_items(g):
+            gsum[p] = t.float() * w + gsum.get(p, 0)
+        lsum = lsum + met["loss"] * met["tokens"]
+    return tree_map(lambda p, _: gsum[p] / accum_steps, params), lsum
+
+
+def build_train_step_spmd(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
+                          mesh, prune_masks: Optional[Dict] = None,
+                          accum_steps: int = 1) -> Callable:
+    """``build_train_step`` for a rank of ``mesh``: (params, opt_state,
+    batch) -> (params, opt_state, metrics), with ``params`` and
+    ``prune_masks`` this rank's parts by ``param_specs`` and the moments
+    its parts by ``opt_specs`` (``launch.sharding.shard_tree``), written
+    in place.  ``batch`` is the whole step's batch on every rank.
+
+    The loss is the token-weighted global mean, as the one-rank
+    ``lm_loss`` computes it; ``accum_steps`` keeps the one-rank rule (the
+    microbatches' gradients summed and divided by the count).  With a
+    data axis of 1 each rank runs the one-rank arithmetic on the whole
+    parameters, so the result is the one-rank step's bit for bit.  The
+    metrics are equal on every rank.  ``train_step.stats``: the gathers'
+    and the all-reduces' ``GatherStats`` (an all-reduce's bytes are what
+    a ring receives, 2·(n−1)/n of the tensor)."""
+    pspecs = dict(tree_items(param_specs(cfg, mesh)))
+    ospecs = dict(tree_items(opt_specs(cfg, mesh)["m"]))
+    # the ZeRO-1 block of a rank's part: its moments' data-axis slice
+    zspecs = {p: tuple(e if e == "data" else None for e in s)
+              for p, s in ospecs.items()}
+    stats = {"gather": GatherStats(), "all_reduce": GatherStats()}
+
+    def train_step(params, opt_state, batch):
+        dev = batch["targets"].device
+        t0 = time.perf_counter()
+        full, got = _gather_model(params, pspecs, mesh)
+        masks = None
+        if prune_masks is not None:
+            masks, n = _gather_model(prune_masks, pspecs, mesh)
+            masks, got = dict(tree_items(masks)), got + n
+        _sync(dev)
+        gather_s = time.perf_counter() - t0
+        rows = _batch_rows(batch, cfg, mesh)
+        if rows is None:
+            grads, metrics = accumulated_grads(full, batch, cfg, accum_steps)
+        else:
+            grads, lsum = _split_grads(full, batch, cfg, rows, accum_steps)
+            _sync(dev)
+            t0 = time.perf_counter()
+            group = mesh.group("data")
+            reduced = 0
+            for _, g in tree_items(grads):
+                all_reduce_sum(g, group)
+                reduced += _nbytes(g)
+            lsum = all_reduce_sum(lsum.reshape(1), group)[0]
+            _sync(dev)
+            stats["all_reduce"].add(time.perf_counter() - t0,
+                                    2 * (mesh.data - 1) * reduced
+                                    // mesh.data)
+            tokens = (batch["targets"] >= 0).sum().float()
+            metrics = {"loss": lsum / tokens.clamp_min(1), "tokens": tokens}
+        del full
+        flat_p = dict(tree_items(params))
+        with torch.no_grad():
+            if masks is not None:
+                for p, g in tree_items(grads):
+                    g.mul_(masks[p])
+            gnorm = opt_lib.global_norm(grads)
+            blocks = tree_map(lambda p, t: shard_leaf(t, zspecs[p], mesh),
+                              params)
+            gblocks = tree_map(lambda p, g: shard_leaf(g, ospecs[p], mesh),
+                               grads)
+            _, opt_state, opt_metrics = opt_lib.update(
+                blocks, gblocks, opt_state, opt_cfg, gnorm=gnorm)
+            del grads, gblocks
+            t0 = time.perf_counter()
+            for p, block in tree_items(blocks):
+                if masks is not None:
+                    block.mul_(shard_leaf(masks[p], ospecs[p], mesh))
+                if sharded_on(zspecs[p], "data", mesh):
+                    flat_p[p].copy_(gather_leaf(block, zspecs[p], mesh,
+                                                ("data",)))
+                    got += (mesh.data - 1) * _nbytes(block)
+            _sync(dev)
+        stats["gather"].add(gather_s + time.perf_counter() - t0, got)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    train_step.stats = stats
+    return train_step

@@ -58,13 +58,23 @@ elastic (data, model) mesh of ``launch/mesh.py``.  With
 ``model_parallel`` > 1 the stack and the vocabulary-split head are
 packed sharded (``pack_model(shards=...)``) and each rank keeps its
 model-axis part; paged KV pools shard their pages over the data axis
-(``kv_shards``, default the data extent).  The steps gather the parts
-and pool chunks around the unchanged base step
-(``launch/steps.build_serve_step_spmd``), so the tokens are the
-one-rank engine's.  Dense ``params`` stay whole on every rank.  The
-typed fallbacks ``head_shard`` and ``kv_shard`` carry the reference's
-reasons.  A world of one rank serves exactly as before; asking it for
-``model_parallel`` or ``kv_shards`` > 1 raises.
+(``kv_shards``, default the data extent).  The dense ``params`` are
+stored by ``launch/sharding.param_specs(cfg, mesh)`` (as the reference
+places them): each rank keeps its part of every model-sharded leaf.
+The steps gather the parts and pool chunks, and the dense leaves they
+read (``dense_gather``: those with no packed form or quarantined, all
+of them with ``stream_weights=False``), around the unchanged base step
+(``launch/steps.build_serve_step_spmd``).  The reference's rules leave
+the embedding and an untied head replicated (their ``embed$`` and
+``lm_head$`` patterns never match a key path, which ends in ``']``), so
+each rank looks tokens up in its own copy.  So the tokens are the
+one-rank engine's.  The typed fallbacks ``head_shard`` and ``kv_shard`` carry
+the reference's reasons.  Decisions taken on the wall clock (deadlines,
+TTFT shedding) read one clock for the world: rank 0's, broadcast once
+per step (``Mesh.from_root``), so every rank expires and sheds alike;
+every time stamp of a step is that reading.  A world of one rank serves
+exactly as before; asking it for ``model_parallel`` or ``kv_shards`` > 1
+raises.
 
 One deliberate difference from the reference: a quarantined LM head is
 served dense *as it was pruned before packing* (``head_sparsity``), not
@@ -86,7 +96,10 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_elastic_mesh, world_size
-from repro_torch.launch.sharding import keep_local, keep_local_tree
+from repro_torch.launch.sharding import (gather_leaf, keep_local,
+                                         keep_local_tree, param_specs,
+                                         resident_bytes, shard_tree,
+                                         sharded_on)
 from repro_torch.launch.steps import (build_prefill_step,
                                       build_prefill_step_spmd,
                                       build_serve_step,
@@ -108,7 +121,7 @@ from repro_torch.serve.telemetry import Clock, MetricsRegistry, Telemetry
 from repro_torch.serve.traffic import TrafficLedger
 from repro_torch.sparse.format import BitmapWeight, pack_bitmap, shard_bitmap
 from repro_torch.sparse.pruning import (global_l1_prune, per_tensor_prune,
-                                        sparsity_of, tree_map)
+                                        sparsity_of, tree_items, tree_map)
 
 
 def _head_block(d_model: int, vocab: int, cap: int = 128):
@@ -314,16 +327,13 @@ class ServeEngine:
         self.mesh = make_elastic_mesh(model_parallel, self.device.type)
         self._spmd = self.mesh.size > 1
         self.model_parallel = self.mesh.model
-        # every rank reads its own clock: a decision taken on it could
-        # part the ranks' host loops, and with them their collectives
-        if self._spmd and (deadline_ms is not None
-                           or ttft_budget_ms is not None):
-            raise NotImplementedError(
-                "deadline_ms / ttft_budget_ms decide on each rank's own "
-                "clock, which would part the ranks of a sharded world")
         self.cfg = cfg
         self.metrics = MetricsRegistry()
         self._clock = Clock()
+        # a sharded world decides on one clock: rank 0's reading at the
+        # start of each step, broadcast (``_tick``); one rank reads its own
+        self._now: Optional[float] = None
+        self._last_now: Optional[float] = None
         self._steps = 0
         # telemetry first: the fallback warnings below emit into the
         # event log
@@ -356,6 +366,8 @@ class ServeEngine:
         if sparsity > 0:
             params = global_l1_prune(params, sparsity)
         self.weight_sparsity = sparsity_of(params) if sparsity > 0 else 0.0
+        # every leaf's whole shape: a sharded rank keeps parts of them
+        self.dense_shapes = {p: tuple(t.shape) for p, t in tree_items(params)}
         self.params = params
         # a dense rendering beside each pack serves the plain version on
         # the CPU; on the card it would hide the kernel, so none is made
@@ -406,6 +418,16 @@ class ServeEngine:
                                  if self.lm_weight is not None else 1.0)
         # the dense head a quarantined packed head is served from
         self._head_dense: Optional[torch.Tensor] = None
+        # sharded: the dense params by the reference's specs, this rank's
+        # parts kept (pruned and packed whole above, for the global
+        # threshold and the packs)
+        self.param_specs: Dict[tuple, tuple] = {}
+        if self._spmd:
+            specs = param_specs(cfg, self.mesh)
+            self.param_specs = dict(tree_items(specs))
+            self.params = shard_tree(params, specs, self.mesh)
+            del params
+        self.dense_gather = self._dense_reads()
         self._sync()
         self.pack_s = time.perf_counter() - t0
 
@@ -578,6 +600,38 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _dense_reads(self) -> frozenset:
+        """The model-sharded dense leaves the step reads, which it
+        gathers: every block leaf with no packed form (all of them with
+        ``stream_weights=False``; a quarantined leaf loses its packed
+        form), and the head's dense source when the head is served from
+        the params.  Empty on one rank."""
+        if not self._spmd:
+            return frozenset()
+        head = self.lm_weight is None and self._head_dense is None
+        out = set()
+        for path, _ in tree_items(self.params):
+            if not sharded_on(self.param_specs[path], "model", self.mesh):
+                continue
+            if path[0] == "blocks":
+                bname, comp, name = path[1:]
+                if (self.packed is None or
+                        self.packed.blocks[bname][comp][name] is None):
+                    out.add(path)
+            elif head and path == (("embed",) if self.cfg.tie_embeddings
+                                   else ("lm_head",)):
+                out.add(path)
+        return frozenset(out)
+
+    def dense_numel(self, path: tuple) -> int:
+        """Elements of a params leaf's whole tensor (a sharded rank
+        holds a part of it)."""
+        return math.prod(self.dense_shapes[path])
+
+    def resident_dense_bytes(self) -> int:
+        """The dense params' bytes this rank holds."""
+        return resident_bytes(self.params)
+
     def _warn_fallback(self, key: str, reason: str, message: str) -> None:
         """Record a fallback reason (mirrored into ``report()``) and warn
         it once per (key, reason) per engine."""
@@ -712,10 +766,6 @@ class ServeEngine:
             raise RequestRejected(
                 f"prompt token outside the vocabulary "
                 f"[0, {self.cfg.vocab_size})")
-        if self._spmd and deadline_ms is not None:
-            raise NotImplementedError(
-                "deadline_ms decides on each rank's own clock, which "
-                "would part the ranks of a sharded world")
         if arrival <= self._steps:
             reason = self._overload_reason()
             if reason is not None:
@@ -846,7 +896,24 @@ class ServeEngine:
     # ------------------------------------------------------------- loop ----
 
     def _wall(self) -> float:
+        """The wall clock decisions read: this process's clock on one
+        rank; in a sharded world the step's reading of rank 0's."""
+        if self._spmd and self._now is not None:
+            return self._now
         return self._clock.now()
+
+    def _tick(self) -> None:
+        """A sharded world's one clock reading per step, rank 0's,
+        broadcast, and the TTFT estimate's step time from two such
+        readings (every rank's estimate is then the same)."""
+        self._now = self.mesh.from_root([self._clock.now()])[0]
+        if self._last_now is not None:
+            self._observe_step(self._now - self._last_now)
+        self._last_now = self._now
+
+    def _observe_step(self, dt: float) -> None:
+        self._step_wall_ema = (dt if self._step_wall_ema is None
+                               else 0.8 * self._step_wall_ema + 0.2 * dt)
 
     def _commit_tokens(self, req: Request) -> int:
         """Pages to commit at admission, in tokens: the worst case
@@ -953,7 +1020,7 @@ class ServeEngine:
             if path == "lm_head":
                 self.lm_weight = None
                 self._head_dense = per_tensor_prune(
-                    lm_head_weight(self.params, self.cfg),
+                    lm_head_weight(self._whole_head_source(), self.cfg),
                     self.head_sparsity)
                 self.head_fallback = reason
                 self.head_compression = 1.0
@@ -971,13 +1038,25 @@ class ServeEngine:
             self.auditor.drop(path)
             self._emit("quarantine", tensor=path, reason=reason)
         # a quarantine flips manifest entries to dense: the ledger's
-        # cached role rows are stale now
+        # cached role rows are stale now, and the step reads the leaves
+        # from the (gathered) params
         self.traffic.invalidate()
+        self.dense_gather = self._dense_reads()
         if self.page_len:
             self.kv.flush_prefix()
         for slot in list(self.scheduler.active):
             self._preempt_slot(slot)
         return True
+
+    def _whole_head_source(self) -> Dict:
+        """The params leaf the dense head is read from, whole (gathered
+        over the model axis in a sharded world: every rank quarantines
+        alike, so every rank joins the gather)."""
+        key = "embed" if self.cfg.tie_embeddings else "lm_head"
+        leaf = self.params[key]
+        if self._spmd:
+            leaf = gather_leaf(leaf, self.param_specs[(key,)], self.mesh)
+        return {key: leaf}
 
     def _decode(self):
         tok = torch.from_numpy(self._tok[:, None]).to(self.device)
@@ -991,19 +1070,22 @@ class ServeEngine:
             kw.update(seeds=self._seeds, temperature=self._temp)
             if self._use_topk_vec:
                 kw["top_ks"] = self._topk
+        if self._spmd:
+            kw["dense"] = self.dense_gather
         return self._step_fn(self.params, self.kv.cache, tok, pos, **kw)
 
     def _prefill(self, tokens: np.ndarray, pos: np.ndarray,
                  lens: np.ndarray):
         """One chunked-prefill call over the fixed (num_slots, C) batch."""
         packed = self.packed.blocks if self.packed is not None else None
+        kw = {"dense": self.dense_gather} if self._spmd else {}
         return self._prefill_fn(
             self.params, self.kv.cache,
             torch.from_numpy(tokens).to(self.device, torch.int64),
             torch.from_numpy(pos).to(self.device, torch.int64),
             torch.from_numpy(lens).to(self.device, torch.int64),
             packed=packed,
-            page_tables=self.kv.tables() if self.page_len else None)
+            page_tables=self.kv.tables() if self.page_len else None, **kw)
 
     def _prefill_call(self) -> None:
         """Run the planner's next batched chunk call and route results:
@@ -1090,6 +1172,8 @@ class ServeEngine:
         and every bracket is a dead branch."""
         self.warmup()
         self._clock.start()
+        if self._spmd:
+            self._tick()
         sp = self.spans
         t_begin = time.perf_counter()
         if sp is not None:
@@ -1248,8 +1332,8 @@ class ServeEngine:
         dt = time.perf_counter() - t_begin
         if sp is not None:
             sp.step_end()
-        self._step_wall_ema = (dt if self._step_wall_ema is None
-                               else 0.8 * self._step_wall_ema + 0.2 * dt)
+        if not self._spmd:
+            self._observe_step(dt)
         self._steps += 1
 
     def _decode_and_route(self, decoding: List[int], in_prefill,
@@ -1351,12 +1435,15 @@ class ServeEngine:
             rep = self.packed.stream_report(activated_experts=activated)
         else:
             dense = 0
-            for bd in self.params["blocks"].values():
+            for bname, bd in self.params["blocks"].items():
                 for comp, tensors in bd.items():
                     for name, t in tensors.items():
-                        routed = (t.shape[1] if (comp, name) in ROUTED_EXPERT
-                                  and t.dim() == 4 else 0)
-                        dense += int(round(t.numel() * t.element_size()
+                        path = ("blocks", bname, comp, name)
+                        shape = self.dense_shapes[path]
+                        routed = (shape[1] if (comp, name) in ROUTED_EXPERT
+                                  and len(shape) == 4 else 0)
+                        dense += int(round(self.dense_numel(path)
+                                           * t.element_size()
                                            * activated_scale(routed,
                                                              activated)))
             rep = {"sparse_bytes_per_step": dense,

@@ -41,6 +41,7 @@ from repro_torch.launch.roofline import roofline
 from repro_torch.models.model import attn_capacity
 from repro_torch.serve.packed import (ROUTED_EXPERT, activated_scale,
                                       entry_device_bytes)
+from repro_torch.sparse.pruning import tree_items
 
 __all__ = ["TrafficLedger", "role_of", "TRAFFIC_PHASES", "TRAFFIC_KINDS",
            "CROSSCHECK_BANDS"]
@@ -173,10 +174,13 @@ class TrafficLedger:
             for bname, bdict in eng.params["blocks"].items():
                 for comp, tensors in bdict.items():
                     for name, leaf in tensors.items():
-                        b = leaf.numel() * leaf.element_size()
-                        routed = (leaf.shape[1]
+                        # whole tensors, as the reference's global arrays
+                        path = ("blocks", bname, comp, name)
+                        shape = eng.dense_shapes[path]
+                        b = eng.dense_numel(path) * leaf.element_size()
+                        routed = (shape[1]
                                   if (comp, name) in ROUTED_EXPERT
-                                  and leaf.dim() == 4 else 0)
+                                  and len(shape) == 4 else 0)
                         sb = int(round(
                             b * activated_scale(routed, activated)))
                         add(role_of(f"blocks/{bname}/{comp}/{name}"),
@@ -339,8 +343,10 @@ class TrafficLedger:
                 for comp, tensors in bdict.items():
                     for name, bw in tensors.items():
                         if bw is None:
+                            path = ("blocks", bname, comp, name)
                             leaf = eng.params["blocks"][bname][comp][name]
-                            weights += leaf.numel() * leaf.element_size()
+                            weights += (eng.dense_numel(path)
+                                        * leaf.element_size())
                         elif bw.dense_cache is not None:
                             weights += (bw.dense_cache.numel()
                                         * bw.dense_cache.element_size()
@@ -348,10 +354,9 @@ class TrafficLedger:
                         else:
                             weights += bw.hbm_bytes
         else:
-            for bdict in eng.params["blocks"].values():
-                for tensors in bdict.values():
-                    for leaf in tensors.values():
-                        weights += leaf.numel() * leaf.element_size()
+            for path, leaf in tree_items(eng.params["blocks"]):
+                weights += (eng.dense_numel(("blocks",) + path)
+                            * leaf.element_size())
         head = 0
         if phase == "decode":
             head_dense = eng.cfg.d_model * eng.cfg.vocab_size * _F32
@@ -409,6 +414,10 @@ class TrafficLedger:
                     r["device_sparse_bytes"] for r in roles.values()),
                 "device_dense_bytes_per_step": sum(
                     r["device_dense_bytes"] for r in roles.values()),
+                # a sharded world only: the dense params this rank holds
+                **({"device_resident_dense_bytes":
+                    eng.resident_dense_bytes()} if eng.mesh.size > 1
+                   else {}),
             },
             "kv": {
                 "line_bytes_per_token": self._line_total,

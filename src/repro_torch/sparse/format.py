@@ -378,14 +378,30 @@ def all_gather_concat(out: torch.Tensor, local: torch.Tensor,
     travel as uint8, whatever the type; a gloo group gathers a card's
     tensors through host memory, as gloo does."""
     import torch.distributed as dist
-    src = local.contiguous().view(torch.uint8)
-    dst = out.view(torch.uint8)
+    # flat first: a size-1 last dim may carry any stride, which a view
+    # to bytes refuses
+    src = local.contiguous().reshape(-1).view(torch.uint8)
+    dst = out.view(-1).view(torch.uint8)
     if src.is_cuda and dist.get_backend(group) == "gloo":
         host = torch.empty(dst.shape, dtype=torch.uint8)
         dist.all_gather_into_tensor(host, src.cpu(), group=group)
         dst.copy_(host)
     else:
         dist.all_gather_into_tensor(dst, src, group=group)
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group``, in place (and
+    returned).  A gloo group reduces a card's tensor through host
+    memory, as ``all_gather_concat`` gathers."""
+    import torch.distributed as dist
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        host = t.cpu()
+        dist.all_reduce(host, group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
 
 
 def gather_bitmap(bw: BitmapWeight, group) -> BitmapWeight:

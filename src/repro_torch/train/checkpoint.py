@@ -15,6 +15,12 @@ place, so a crash mid-write never corrupts the latest checkpoint;
 ``latest_step`` ignores uncommitted directories.  Retries wrap the
 filesystem ops.  An optional background thread gives async write-behind
 (the host copy is taken before it starts).
+
+Sharded state (each rank's parts, ``launch.sharding.shard_tree``) is
+saved whole: every rank gathers each leaf in turn, and rank 0 alone
+writes, so the files are those of a one-rank save of the same state.
+Restoring, every rank reads the whole leaves and keeps its parts, so a
+run may resume at another mesh shape.
 """
 from __future__ import annotations
 
@@ -52,15 +58,37 @@ def treedef_str(tree: Any) -> str:
     return f"PyTreeDef({spell(tree)})"
 
 
+def _host_copy(leaf: torch.Tensor) -> np.ndarray:
+    return leaf.detach().to("cpu", copy=True).numpy()
+
+
 def save(ckpt_dir: str, step: int, tree: Any,
-         keep: int = 3, async_: bool = False) -> Optional[threading.Thread]:
+         keep: int = 3, async_: bool = False, specs: Any = None,
+         mesh=None) -> Optional[threading.Thread]:
     """Checkpoint a nested dict of tensors.  With ``async_`` the host
     copies are taken now and the files written on a daemon thread, which
     is returned (join it before the next save).  The copies are real ones
     on the CPU too, where ``.cpu()`` would share the leaf's memory and
-    the next in-place update would reach the files being written."""
-    host_leaves = [l.detach().to("cpu", copy=True).numpy()
-                   for _, l in tree_items(tree)]
+    the next in-place update would reach the files being written.
+
+    ``specs`` / ``mesh``: ``tree`` holds this rank's parts of a sharded
+    state (a spec tree shaped as ``tree``).  Every rank of the mesh must
+    call this alike: each leaf is gathered whole (one leaf on the device
+    at a time) and rank 0 takes the host copies and writes; the other
+    ranks write nothing and return None."""
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.launch.sharding import gather_leaf
+        flat = dict(tree_items(specs))
+        host_leaves = []
+        for path, leaf in tree_items(tree):
+            whole = gather_leaf(leaf, flat[path], mesh)
+            if mesh.rank == 0:
+                host_leaves.append(_host_copy(whole))
+            del whole
+        if mesh.rank != 0:
+            return None
+    else:
+        host_leaves = [_host_copy(l) for _, l in tree_items(tree)]
     structure = treedef_str(tree)
 
     def write():
@@ -113,22 +141,32 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: int, like: Any,
-            device: torch.device | str | None = None) -> Any:
+            device: torch.device | str | None = None, specs: Any = None,
+            mesh=None) -> Any:
     """Restore into the structure of ``like`` (a nested dict of tensors):
     each leaf takes ``like``'s dtype and lands on ``device`` (``like``'s
-    leaf's device unless named)."""
+    leaf's device unless named).  ``specs`` / ``mesh``: ``like`` holds
+    this rank's parts; each whole leaf is read and this rank's part of
+    it kept (by the current mesh, whatever mesh wrote the files)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     if not os.path.exists(os.path.join(path, "_COMPLETE")):
         raise FileNotFoundError(f"checkpoint {path} is not committed")
     index = {p: i for i, (p, _) in enumerate(tree_items(like))}
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        from repro_torch.launch.sharding import shard_leaf, whole_shape
+        flat = dict(tree_items(specs))
 
     def load(p, ref):
         arr = _retry(lambda: np.load(os.path.join(path,
                                                   f"leaf_{index[p]}.npy")))
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"leaf {index[p]}: {arr.shape} vs "
-                             f"{tuple(ref.shape)}")
-        return torch.from_numpy(arr).to(
-            ref.device if device is None else device, ref.dtype)
+        want = (whole_shape(ref, flat[p], mesh) if sharded
+                else tuple(ref.shape))
+        if tuple(arr.shape) != want:
+            raise ValueError(f"leaf {index[p]}: {arr.shape} vs {want}")
+        t = torch.from_numpy(arr)
+        if sharded:
+            t = shard_leaf(t, flat[p], mesh).contiguous()
+        return t.to(ref.device if device is None else device, ref.dtype)
 
     return tree_map(load, like)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -71,13 +71,16 @@ def _decay_mask(path) -> bool:
 
 
 @torch.no_grad()
-def update(params: Any, grads: Any, state: Dict, cfg: OptConfig
-           ) -> Tuple[Any, Dict, Dict]:
+def update(params: Any, grads: Any, state: Dict, cfg: OptConfig,
+           gnorm: Optional[torch.Tensor] = None) -> Tuple[Any, Dict, Dict]:
     """One AdamW step, written into ``params`` and ``state`` in place.
     Returns (params, state, {"grad_norm", "lr"}) — the same objects
-    passed in, updated."""
+    passed in, updated.  ``gnorm``: the norm to clip by, when ``grads``
+    is a slice of the whole gradient (a sharded step updating its part);
+    None takes ``global_norm(grads)``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

@@ -52,7 +52,8 @@ def load_params(path: str):
 
 def engine_kwargs(sc: dict) -> dict:
     kw = dict(num_slots=sc["num_slots"], max_len=48,
-              sparsity=sc["sparsity"], seed=0)
+              sparsity=sc["sparsity"], seed=0,
+              stream_weights=sc.get("stream_weights", True))
     if sc["paged"]:
         kw.update(paged=True, page_len=8, prefix_reuse=True, preempt=True)
     if sc["prefill_chunk"]:
@@ -79,8 +80,10 @@ def serve(sc: dict, params, mp: int = 1) -> dict:
         eng.kv.audit()
     entries = [e for e in (eng.packed.manifest if eng.packed else [])
                if e.shard is not None]
-    resident = {p: bw.resident_bytes for p, bw in eng.packed.leaves()}
-    return {
+    stats = (eng._step_fn.stats.report() if eng.mesh.size > 1 else {})
+    resident = ({p: bw.resident_bytes for p, bw in eng.packed.leaves()}
+                if eng.packed else {})
+    return {**dense_accounting(eng),
         "mesh": eng.mesh.shape,
         "tokens": {str(r.rid): [int(t) for t in r.tokens]
                    for r in eng.requests},
@@ -92,6 +95,7 @@ def serve(sc: dict, params, mp: int = 1) -> dict:
         "dev_sparse": int(ws["device_sparse_bytes_per_step"]),
         "dev_dense": int(ws["device_dense_bytes_per_step"]),
         "tot_sparse": int(ws["sparse_bytes_per_step"]),
+        "ledger_resident": tw.get("device_resident_dense_bytes"),
         "ledger": [tw["sparse_bytes_per_step"],
                    tw["device_sparse_bytes_per_step"],
                    tw["device_dense_bytes_per_step"], tw["shards"]],
@@ -103,9 +107,86 @@ def serve(sc: dict, params, mp: int = 1) -> dict:
                           if eng.lm_weight is not None else 0),
         "head_hbm": (eng.lm_weight.hbm_bytes
                      if eng.lm_weight is not None else 0),
-        "gathers": (eng._step_fn.stats.calls if eng.mesh.size > 1 else 0),
+        "gathers": stats.get("calls", 0),
+        "dense_received": stats.get("dense_bytes_received_per_call", 0),
         "report_keys": list(rep),
     }
+
+
+def dense_accounting(eng) -> dict:
+    """The dense params' bytes: this rank's, the whole tree's, the whole
+    bytes of its model-sharded leaves, and the leaves the step gathers."""
+    from repro_torch.launch.sharding import sharded_on
+    from repro_torch.sparse.pruning import tree_items
+    whole = sharded = 0
+    for p, t in tree_items(eng.params):
+        b = eng.dense_numel(p) * t.element_size()
+        whole += b
+        if eng.mesh.size > 1 and sharded_on(eng.param_specs[p], "model",
+                                            eng.mesh):
+            sharded += b
+    return {"dense_resident": eng.resident_dense_bytes(),
+            "dense_whole": whole, "dense_model_sharded": sharded,
+            "dense_gather": sorted("/".join(p) for p in eng.dense_gather)}
+
+
+QUARANTINED = "blocks/b0/mlp/w_down"
+
+
+def quarantine(params, mp: int, faulted: bool) -> dict:
+    """The sharded contiguous engine (mp, audited) serving ``PROMPTS``;
+    ``faulted``: a bit flip in ``QUARANTINED`` (row-sharded) at step 3
+    on every rank, so that it is quarantined and served from its
+    gathered dense part."""
+    from repro_torch.serve import FaultPlan, ServeEngine
+    plan = (FaultPlan(seed=5).bitflip(step=3, tensor=QUARANTINED)
+            if faulted else None)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng = ServeEngine(smoke_config("olmo-1b"), params=params,
+                          device="cpu", num_slots=4, max_len=48,
+                          sparsity=0.5, model_parallel=mp, seed=0,
+                          audit=True, faults=plan)
+        before = dense_accounting(eng)["dense_gather"]
+        reqs = [eng.submit(p, 6, arrival=float(i // 2),
+                           temperature=(0.8 if i % 2 else 0.0),
+                           seed=100 + i, top_k=(8 if i % 2 else None))
+                for i, p in enumerate(PROMPTS)]
+        rep = eng.run()
+    return {"tokens": {str(r.rid): [int(t) for t in r.tokens]
+                       for r in reqs},
+            "quarantined": sorted(rep["lifecycle"]["quarantined"]),
+            "gather_before": before,
+            "gather_after": dense_accounting(eng)["dense_gather"],
+            "dense_received": (eng._step_fn.stats.dense_bytes_received
+                               if eng.mesh.size > 1 else 0)}
+
+
+def clock(params, rank: int) -> dict:
+    """Deadlines and TTFT shedding in the sharded world (mp 2) with rank
+    1's own clock running 1000x slow: request 2 waits in the queue past
+    its 2 ms deadline, requests 4 and 5 come due at step 4 while the
+    estimated TTFT is past the 1 ms budget.  Every decision reads rank
+    0's clock, so every rank expires and sheds alike."""
+    from repro_torch.serve import ServeEngine
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng = ServeEngine(smoke_config("olmo-1b"), params=params,
+                          device="cpu", num_slots=2, max_len=48,
+                          sparsity=0.5, model_parallel=2, seed=0,
+                          ttft_budget_ms=1.0)
+    if rank == 1:
+        real = eng._clock.now
+        eng._clock.now = lambda: real() / 1000.0
+    reqs = [eng.submit(PROMPTS[i], 6, arrival=(4.0 if i >= 4 else 0.0),
+                       deadline_ms=(2.0 if i == 2 else None))
+            for i in range(6)]
+    rep = eng.run()
+    return {"states": {str(r.rid): r.state.name for r in reqs},
+            "tokens": {str(r.rid): [int(t) for t in r.tokens]
+                       for r in reqs},
+            "expired": rep["lifecycle"]["expired"],
+            "shed": rep["lifecycle"]["shed"], "steps": rep["steps"]}
 
 
 def chaos_plans(rank: int) -> dict:
@@ -212,6 +293,9 @@ def main(spec_path: str, out_dir: str) -> None:
     res["chaos"] = {name: chaos(params["olmo-1b"], plan) for name, plan
                     in chaos_plans(dist.get_rank()).items()}
     res["indivisible"] = indivisible(params["olmo-1b"])
+    res["dense_stack"] = serve(spec["dense_stack"], params["olmo-1b"], 2)
+    res["quarantine"] = quarantine(params["olmo-1b"], 2, True)
+    res["clock"] = clock(params["olmo-1b"], dist.get_rank())
     res["gathers"] = gathers()
     with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
               "w") as f:

@@ -14,7 +14,13 @@ stops under this JAX), the same fallback keys, none blaming
 ``model_parallel``, ``shards == mp``, the KV shards, no shard fallbacks
 at mp > 1, each rank's resident packed bytes the total floor-divided per
 tensor, the device byte columns equal to the reference's sharded pack's,
-and the allocator's audit clean on every rank.
+and the allocator's audit clean on every rank.  The dense ``params``
+are stored by ``param_specs`` too: each rank holds the whole tree less
+(mp - 1)/mp of its model-sharded leaves.  Beyond the reference's: the
+dense-dispatch stack at mp 2 (every sharded dense leaf gathered), a
+packed leaf quarantined and served from its gathered dense part, and
+deadlines and TTFT shedding with rank 1's own clock skewed, which every
+rank must decide alike on rank 0's broadcast clock.
 """
 import dataclasses
 import json
@@ -62,6 +68,9 @@ SCENARIOS = {
         arch="rwkv6-3b", sparsity=0.5, paged=False, prefill_chunk=0,
         num_slots=4, mps=[2]),
 }
+# stream_weights=False at mp 2: every model-sharded dense leaf gathered
+DENSE_STACK = dict(arch="olmo-1b", sparsity=0.5, paged=False,
+                   prefill_chunk=0, num_slots=4, stream_weights=False)
 # the reference ServeEngine stops on rwkv6 under this JAX
 # (ShardingTypeError); its tokens are held at the decode_step level in
 # tests/test_torch_ssm_engine.py
@@ -175,7 +184,8 @@ def runs():
             np.savez(paths[a], **dict(_flat(params[a])))
         spec = os.path.join(tmp, "spec.json")
         with open(spec, "w") as f:
-            json.dump({"params": paths, "scenarios": SCENARIOS}, f)
+            json.dump({"params": paths, "scenarios": SCENARIOS,
+                       "dense_stack": DENSE_STACK}, f)
         env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
                "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
                "WORLD_SIZE": str(WORLD), "OMP_NUM_THREADS": "1"}
@@ -198,6 +208,9 @@ def runs():
                 single = {name: worker.serve(
                     sc, worker.load_params(paths[sc["arch"]]))
                     for name, sc in SCENARIOS.items()}
+                olmo = worker.load_params(paths["olmo-1b"])
+                single["dense_stack"] = worker.serve(DENSE_STACK, olmo)
+                single["quarantine"] = worker.quarantine(olmo, 1, False)
                 ref = {name: _ref_tokens(sc)
                        for name, sc in SCENARIOS.items()
                        if sc["arch"] not in NO_REFERENCE_ENGINE}
@@ -257,8 +270,22 @@ def test_sharded_serving_matches_single_rank(runs, name):
                 assert r["dev_sparse"] < r["tot_sparse"], ctx
                 if r["head_hbm"] and sc["arch"] != "granite-moe-3b-a800m":
                     assert r["head_resident"] * mp == r["head_hbm"], ctx
+                # the dense params by param_specs: each rank holds the
+                # whole tree less (mp - 1)/mp of its model-sharded leaves
+                assert r["dense_model_sharded"] > 0, ctx
+                assert r["dense_resident"] == (
+                    r["dense_whole"]
+                    - r["dense_model_sharded"] * (mp - 1) // mp), ctx
+                assert r["dense_whole"] == one["dense_whole"], ctx
+                # the ledger's per-rank resident column, beside the
+                # packed ones (a sharded world only)
+                assert r["ledger_resident"] == r["dense_resident"], ctx
+                assert one["ledger_resident"] is None
+                # every leaf has a packed form: no dense leaf travels
+                assert r["dense_gather"] == [] and r["dense_received"] == 0
             else:
                 assert r["dev_sparse"] == r["tot_sparse"], ctx
+                assert r["dense_resident"] == r["dense_whole"], ctx
                 assert r["resident"] == 0 and r["sharded_entries"] == 0
 
 
@@ -292,6 +319,55 @@ def test_bit_flip_in_one_rank_part_quarantines_on_every_rank(runs):
         assert chaos["quarantined"] == flipped["quarantined"], rank
         assert set(chaos["fallbacks"]) == set(flipped["fallbacks"]), rank
         assert chaos["tokens"] == clean["tokens"], rank
+
+
+def test_dense_stack_gathers_every_sharded_leaf(runs):
+    """stream_weights=False at mp 2: the step reads every block matrix
+    densely, so every model-sharded block leaf is gathered, and the
+    tokens are the one-rank dense-dispatch engine's."""
+    one = runs["single"]["dense_stack"]
+    for rank, res in enumerate(runs["ranks"]):
+        r = res["dense_stack"]
+        assert r["mesh"] == {"data": 2, "model": 2}, rank
+        assert r["tokens"] == one["tokens"], rank
+        assert r["gathers"] > 0, rank
+        sharded_blocks = r["dense_gather"]
+        assert sharded_blocks and all(p.startswith("blocks/")
+                                      for p in sharded_blocks), rank
+        assert len(sharded_blocks) == 7           # wq wk wv wo, the MLP
+        assert r["dense_received"] == r["dense_model_sharded"] // 2, rank
+        assert r["dense_resident"] == (r["dense_whole"]
+                                       - r["dense_model_sharded"] // 2)
+        # the ledger counts whole tensors, as the reference's
+        assert r["tot_sparse"] == one["tot_sparse"], rank
+
+
+def test_quarantined_leaf_is_served_from_its_gathered_dense_part(runs):
+    """A bit flip in a row-sharded packed leaf on every rank: the leaf is
+    quarantined, the step gathers its dense part from then on, and every
+    request replays to the clean one-rank run's tokens."""
+    clean = runs["single"]["quarantine"]
+    assert clean["quarantined"] == [] and clean["gather_after"] == []
+    for rank, res in enumerate(runs["ranks"]):
+        q = res["quarantine"]
+        assert q["quarantined"] == [worker.QUARANTINED], rank
+        assert q["gather_before"] == [], rank
+        assert q["gather_after"] == [worker.QUARANTINED], rank
+        assert q["dense_received"] > 0, rank
+        assert q["tokens"] == clean["tokens"], rank
+
+
+def test_world_clock_expires_and_sheds_alike_on_every_rank(runs):
+    """Rank 1's own clock runs 1000x slow; the decisions read rank 0's,
+    broadcast once per step, so every rank expires and sheds the same
+    requests and serves the same tokens."""
+    c0 = runs["ranks"][0]["clock"]
+    assert c0["states"]["2"] == "EXPIRED", c0
+    assert c0["states"]["4"] == c0["states"]["5"] == "SHED", c0
+    assert c0["states"]["0"] == c0["states"]["1"] == "DONE", c0
+    assert c0["expired"] >= 1 and c0["shed"] >= 2, c0
+    for rank, res in enumerate(runs["ranks"]):
+        assert res["clock"] == c0, rank
 
 
 def test_kv_shard_fallback_is_typed_and_serving_continues(runs):

@@ -382,8 +382,19 @@ def test_compress_tree_matches_reference():
                                grads["w"], rtol=1e-6)
     fb = pt_comp.init_error_fb(pq, 4)
     assert fb["w"].shape == (4, 8, 16) and fb["w"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pt_comp.compressed_psum_grads(None, None)
+    # a world of one rank: the compressed all-reduce returns g + err
+    # quantised and dequantised, and its residual with a leading dim of 1
+    # (the n-rank arithmetic: tests/test_torch_spmd_train.py)
+    from repro_torch.launch.mesh import Mesh
+    g = tree_map(lambda _, a: torch.from_numpy(a), grads)
+    fn = pt_comp.compressed_psum_grads(lambda p, b: g, Mesh())
+    err = pt_comp.init_error_fb(g, 1)
+    got, resid = fn(None, torch.zeros(1), err)
+    for (path, a), (_, b), (_, r) in zip(tree_items(deq), tree_items(got),
+                                         tree_items(resid)):
+        assert torch.equal(a, b), path
+        assert r.shape == (1, *a.shape)
+    np.testing.assert_array_equal(resid["w"][0].numpy(), pr["w"].numpy())
 
 
 # ------------------------------------------------------------- driver ------
@@ -459,5 +470,6 @@ def test_cli_runs_on_cpu_and_defaults_to_cuda(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaDevice):
         pt_train.main(["--arch", "olmo-1b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a world of one rank refuses to shard rather than train alone
+    with pytest.raises(ValueError, match="torch.distributed"):
         pt_train.train("olmo-1b", model_parallel=2, device="cpu")
