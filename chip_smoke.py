@@ -74,7 +74,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    dense-dispatch engine serves the same trace.  Then K1g is timed over
    all 32 layers' expert stacks at M = 4, K1 over granite's 160
    projections, a whole decode step's 256 launches, and the card's idle
-   share under ``torch.profiler``.
+   share under ``torch.profiler``.  Last, one decode step of the walk
+   engine with baseline mode's MoE dispatch (``moe_global``, as a step
+   built under ``REPRO_PERF_MODE=baseline`` runs it): every MoE layer
+   through the global dispatch (``layers._moe_ffn_global``, the whole
+   slot batch ranked at once),
+   96 K1g and 160 K1 launches, the logits against the plain versions
+   (phase 3's rule).
 5. Kernels K2-K4 against their plain versions and timed, through the
    kernel layer's entry points (``ops.flash_attention``,
    ``ops.block_sparse_matmul``, ``kernels.nm_spmm.nm_spmm``) at
@@ -204,6 +210,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    step, the resident bytes and peak memory per rank and the backend.
    Training reaches no kernel: the kernels line gains no launch.  A rank
    that fails fails the run.
+11. musicgen-medium, the frames frontend, at full width (48 layers, d
+   1536, d_ff 6144, vocab 2048: 1.365 B params; no cut): seeded init,
+   sparsity 0.5, 4 slots, ``max_len`` 256.  First the frames key on the
+   card: the key folded at steps 0, 1, 17 and 10**6, its bits and
+   normals against the same replay on the CPU (keys and bits exact,
+   normals within 4 ulps).  Then 8 Poisson requests walked, contiguous:
+   every budget served, 6 x 48 + 1 = 289 K1 launches per decode step,
+   no dense copy, one decode step (the engine's own frame draw) through
+   the kernels against the plain versions (phase 3's rule); then paged
+   (pages of 16) with prefix reuse, preemption and chunked prefill
+   asked, each falling back with the reference's frames reason: the
+   same counts, and tokens equal to the contiguous run's or parting
+   only at its near tie.  It prints tok/s, p50 / p99, ms per step, K1's
+   289 launches of one step against their byte bound, the profiled idle
+   share and the peak memory.
+12. The port's examples through their ``main`` with default arguments
+   (``examples/torch/``: quickstart, serve_batched, train_sparse_lm),
+   each printing ``OK``; their K1 / K1g launches are counted and join
+   the kernels line.
 
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
 its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
@@ -708,9 +733,15 @@ def decode_step_check(eng, gen) -> None:
     the plain versions, on copies of the engine's cache.  A paged engine
     steps through page tables that give each slot its own pages."""
     from repro_torch.models.model import decode_step
+    from repro_torch.prng import fold_in, normal
     cfg, device = eng.cfg, eng.device
     tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
                         device=device)
+    embeds = None
+    if cfg.frontend == "frames":
+        # the engine's own draw at step 5: frame embeddings, no tokens
+        tok, embeds = None, normal(fold_in(eng._embed_key, 5),
+                                   (4, 1, cfg.d_model), device)
     pos = torch.tensor([3, 17, 64, 200], device=device)
     tables = None
     if eng.page_len:
@@ -722,7 +753,7 @@ def decode_step_check(eng, gen) -> None:
         cache = {b: {k: t.clone() for k, t in leaf.items()}
                  for b, leaf in eng.kv.cache.items()}
         out[impl], _ = decode_step(eng.params, cache, cfg, tok, pos,
-                                   lm_weight=eng.lm_weight,
+                                   embeds=embeds, lm_weight=eng.lm_weight,
                                    packed=eng.packed.blocks, lm_impl=impl,
                                    page_tables=tables)
         del cache
@@ -730,6 +761,60 @@ def decode_step_check(eng, gen) -> None:
     assert out[None].shape == (4, cfg.vocab_size)
     agree(out[None], out["torch"],
           "paged decode-step logits" if tables else "decode-step logits")
+
+
+def baseline_decode_check(eng, gen) -> int:
+    """Phase 4: one decode step of ``eng`` with baseline mode's MoE
+    dispatch (``moe_global``, what a step built under
+    ``REPRO_PERF_MODE=baseline`` passes: the whole slot batch's tokens
+    ranked at once, ``layers._moe_ffn_global``) through the kernels
+    against the plain versions, phase 3's rule.  Returns the step's K1g
+    launches (one per expert stack per layer, as the default
+    dispatch)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import layers
+    from repro_torch.models.model import decode_step
+    cfg, device = eng.cfg, eng.device
+    tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
+                        device=device)
+    pos = torch.tensor([3, 17, 64, 200], device=device)
+    dispatched = []
+    real = layers._moe_ffn_global
+
+    def counted(*a, **kw):
+        dispatched.append(1)
+        return real(*a, **kw)
+
+    layers._moe_ffn_global = counted
+    try:
+        out, launches = {}, {}
+        for impl in (None, "torch"):
+            cache = {b: {k: t.clone() for k, t in leaf.items()}
+                     for b, leaf in eng.kv.cache.items()}
+            sync()
+            reset_launches()
+            out[impl], _ = decode_step(eng.params, cache, cfg, tok, pos,
+                                       lm_weight=eng.lm_weight,
+                                       packed=eng.packed.blocks,
+                                       lm_impl=impl, moe_global=True)
+            sync()
+            launches[impl] = dict(LAUNCHES)
+            del cache
+    finally:
+        layers._moe_ffn_global = real
+    reset_launches()
+    want = per_step(eng)
+    got = {k: launches[None][k] for k in want}
+    assert got == want, (got, want)
+    assert sum(launches["torch"].values()) == 0, launches["torch"]
+    moe_blocks = sum(b.ffn == "moe" for b in cfg.pattern) * cfg.num_periods
+    assert len(dispatched) == 2 * moe_blocks, (len(dispatched), moe_blocks)
+    agree(out[None], out["torch"],
+          "baseline-mode decode-step logits (global MoE dispatch)")
+    print(f"baseline mode: {got['bitmap_spmm_grouped']} K1g + "
+          f"{got['bitmap_spmm']} K1 launches in one decode step, "
+          f"{moe_blocks} MoE layers through the global dispatch")
+    return got["bitmap_spmm_grouped"]
 
 
 def prefill_call_check(eng, gen, chunk: int) -> None:
@@ -1168,7 +1253,8 @@ def granite_engine_phase(cfg, device, gen, chunk: int = 16,
     del dense
     torch.cuda.empty_cache()
     profile_steps(eng)
-    return eng, paths
+    baseline = baseline_decode_check(eng, gen)
+    return eng, paths, baseline
 
 
 def granite_timing_phase(eng, device, gen, m: int = 4):
@@ -3092,6 +3178,198 @@ def sharded_training_phase(cfg, smi: str) -> None:
               f" MB (the int8 payload itself {c['int8_payload_bytes'] / 1e6:.1f}"
               f" MB)")
 
+# ------------------------------------------------ phase 11: musicgen ----
+
+
+def replay_on_card(eng, steps=(0, 1, 17, 10**6), reps: int = 50) -> float:
+    """The frames draws on the card against the same replay on the CPU:
+    bits exact, normals within 4 float32 ulps (the tests hold the CPU
+    replay, keys included, to ``jax.random``).  Returns the wall ms per
+    draw of one decode step's (num_slots, 1, d_model) embeddings,
+    ``fold_in`` included, over ``reps`` draws and one sync: host time,
+    since the draw's ~180 launches each do a few microseconds' work."""
+    from repro_torch import prng
+    d, b, dev = eng.cfg.d_model, eng.num_slots, eng.device
+    worst = 0
+    for step in steps:
+        key = prng.fold_in(eng._embed_key, step)
+        bits = prng.random_bits(key, b * d, dev)
+        assert bits.device.type == dev.type
+        assert torch.equal(bits.cpu(), prng.random_bits(key, b * d))
+        got = prng.normal(key, (b, 1, d), dev).cpu()
+        want = prng.normal(key, (b, 1, d))
+
+        def ordinal(t):
+            i = t.view(torch.int32).long()
+            return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+        ulps = int((ordinal(got) - ordinal(want)).abs().max())
+        assert ulps <= 4, (step, ulps)
+        worst = max(worst, ulps)
+    sync()
+    t0 = time.perf_counter()
+    for step in range(reps):
+        prng.normal(prng.fold_in(eng._embed_key, step), (b, 1, d), dev)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    print(f"frames replay on the card: {b * d} bits per step equal the "
+          f"CPU's at steps {list(steps)}; normals within {worst} ulps "
+          f"(limit 4) | one step's draw {ms:.3f} ms wall (host-bound, "
+          f"mean of {reps})")
+    return ms
+
+
+def musicgen_phase(cfg, device, gen, trace_len: int = 8):
+    """Phase 11: musicgen-medium (the frames frontend) served through K1
+    at full width, contiguous then paged; returns the path records and
+    one decode step's K1 timing tuple."""
+    from repro_torch.serve import ServeEngine, poisson_trace
+    from repro_torch.serve.engine import kv_fallbacks, prefill_fallback
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, num_slots=4, max_len=256, sparsity=0.5, seed=0,
+                      device=device)
+    ws = eng.weight_stream_report()
+    print(f"engine {cfg.name} ({cfg.param_count() / 1e9:.3f} B params): "
+          f"init {eng.init_s:.2f}s, prune + pack {eng.pack_s:.2f}s "
+          f"(constructor {time.perf_counter() - t0:.2f}s) | weight sparsity "
+          f"{eng.weight_sparsity:.4f} | head compression "
+          f"{eng.head_compression:.3f}x | modeled weight bytes per step "
+          f"{ws['sparse_bytes_per_step'] / 1e9:.3f} GB packed vs "
+          f"{ws['dense_bytes_per_step'] / 1e9:.3f} GB dense | executed "
+          f"{executed_bytes(eng) / 1e9:.3f} GB | max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert_no_dense_copy(eng)
+    want = per_step(eng)
+    if cfg.name == "musicgen-medium":
+        assert want == {"bitmap_spmm": 6 * 48 + 1,
+                        "bitmap_spmm_grouped": 0}, want
+    draw_ms = replay_on_card(eng)
+    trace = poisson_trace(trace_len, rate=0.5, seed=0,
+                          vocab_size=cfg.vocab_size, prompt_len=(1, 4),
+                          max_new=(8, 24))
+    margins = record_margins(eng)
+    rep = serve(eng, trace, f"{cfg.name} packed engine (frames), "
+                            f"contiguous")
+    paths = [check_counts(eng, rep, f"{cfg.name}, frames, contiguous")]
+    step_ms = 1e3 * rep["wall_s"] / eng.decode_steps
+    print(f"{cfg.name}: {rep['tok_per_s']:.2f} tok/s | latency p50 "
+          f"{rep['latency_s']['p50'] * 1e3:.1f} ms p99 "
+          f"{rep['latency_s']['p99'] * 1e3:.1f} ms | wall per decode step "
+          f"{step_ms:.2f} ms, of which the frames draw {draw_ms:.3f} ms "
+          f"({100 * draw_ms / step_ms:.1f} %)")
+    decode_step_check(eng, gen)
+
+    t0 = time.perf_counter()
+    paged = ServeEngine(cfg, num_slots=4, max_len=256, params=eng.params,
+                        head_sparsity=eng.head_sparsity, paged=True,
+                        page_len=16, prefix_reuse=True, preempt=True,
+                        prefill_chunk=16, device=device)
+    fb = paged.report()["fallbacks"]
+    reasons = kv_fallbacks(cfg, True, True, True)
+    assert "paging" not in fb and paged.page_len == 16, fb
+    assert fb["prefix_reuse"] == reasons["prefix_reuse"], fb
+    assert fb["preempt"] == reasons["preempt"], fb
+    assert fb["prefill"] == prefill_fallback(cfg), fb
+    assert all("frames" in fb[k] for k in ("prefix_reuse", "preempt",
+                                          "prefill")), fb
+    for k in ("prefill", "prefix_reuse", "preempt"):
+        print(f"  fallback {k}: {fb[k]}")
+    assert_no_dense_copy(paged)
+    prep = serve(paged, trace, f"{cfg.name} paged engine (page_len 16; "
+                               f"reuse, preempt and chunked prefill asked)")
+    paths.append(check_counts(paged, prep, f"{cfg.name}, frames, paged"))
+    assert prep["paging"]["pages_in_use"] == 0
+    paged.kv.audit()
+    same_tokens_or_near_tie(prep, rep, margins, cfg.d_model,
+                            f"{cfg.name} paged vs contiguous")
+    decode_step_check(paged, gen)
+    print(f"paged: tok/s {prep['tok_per_s']:.2f} vs {rep['tok_per_s']:.2f} "
+          f"contiguous | wall per decode step "
+          f"{1e3 * prep['wall_s'] / paged.decode_steps:.2f} ms vs "
+          f"{step_ms:.2f} ms | pages peak "
+          f"{prep['paging']['pages_peak']} of "
+          f"{prep['paging']['pages_total']} [run "
+          f"{time.perf_counter() - t0:.1f}s]")
+    del paged
+    torch.cuda.empty_cache()
+    busy = profile_steps(eng)
+    times = musicgen_timing(eng, device, gen)
+    print(f"{cfg.name} decode step: K1 {times[0]:.3f} ms of "
+          f"{step_ms:.2f} ms wall (byte bound {times[2]:.3f} ms); device busy "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'}")
+    del eng
+    torch.cuda.empty_cache()
+    return paths, times
+
+
+def musicgen_timing(eng, device, gen, m: int = 4):
+    """Phase 11 (timing): one decode step's 289 K1 launches at M = 4
+    (bf16 X), beside the byte bound, the plain version and the dense
+    library call."""
+    from repro_torch.kernels import ops
+    cfg = eng.cfg
+    blk = eng.packed.blocks["b0"]
+    attn, mlp = blk["attn"], blk["mlp"]
+    x_d = torch.randn(m, cfg.d_model, generator=gen, device=device,
+                      dtype=torch.bfloat16)
+    x_f = torch.randn(m, cfg.d_ff, generator=gen, device=device,
+                      dtype=torch.bfloat16)
+    seq = []
+    for p in range(cfg.num_periods):
+        seq += [(x_d, attn[n].period(p)) for n in ("wq", "wk", "wv", "wo")]
+        seq += [(x_d, mlp["w_up"].period(p)), (x_f, mlp["w_down"].period(p))]
+    seq.append((x_d, eng.lm_weight))
+    return time_step(f"one {cfg.name} decode step",
+                     [(x, w, "bitmap_spmm") for x, w in seq],
+                     {"bitmap_spmm": ops.bitmap_spmm},
+                     {"bitmap_spmm": torch.matmul})
+
+
+# ------------------------------------------------ phase 12: examples ----
+
+EXAMPLES = ("quickstart", "serve_batched", "train_sparse_lm")
+
+
+def examples_phase(device) -> list:
+    """Phase 12: the port's device examples (``examples/torch``) through
+    their ``main`` with default arguments (the card; elsewhere
+    ``--device`` names the device), each printing ``OK``, its launches
+    counted.  Returns their path records."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    argv = [] if device.type == "cuda" else ["--device", str(device)]
+    paths = []
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        sync()
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            mod.main(argv)
+        sync()
+        launches = dict(LAUNCHES)
+        reset_launches()
+        text = out.getvalue()
+        lines = text.rstrip().splitlines()
+        print("\n".join(f"  | {ln}" for ln in lines[-4:]))
+        assert lines and lines[-1] == "OK", (name, lines[-3:])
+        print(f"example {name}: OK in {time.perf_counter() - t0:.1f}s, "
+              f"launches {launches}")
+        for kernel, n in launches.items():
+            if n:
+                paths.append((kernel, {"path": f"examples/torch/{name}.py",
+                                       "launches": n}))
+    assert any(k == "bitmap_spmm" for k, _ in paths), paths
+    return paths
+
+
 def phase(label: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[{label}: {now - t0:.1f}s]")
@@ -3105,8 +3383,9 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         jamba_cfg=None, jamba_smoke=None, ssm_shapes=SSM_SHAPES,
         mix_b_shapes=MIX_B_SHAPES, sharded_cases=SHARDED_CASES,
         sharded_expert_cases=SHARDED_EXPERT_CASES,
-        smi: str = "") -> dict:
-    """Phases 2-8; returns the kernels record.  A kernel's ``launches``
+        smi: str = "", musicgen_cfg=None) -> dict:
+    """Phases 2-12 (11 with ``musicgen_cfg``); returns the kernels
+    record.  A kernel's ``launches``
     sums its ``paths`` (each path's run with the counts set to 0 just
     before it).  K1's and K1g's ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are one decode step's calls at M = 4; K2's are
@@ -3141,7 +3420,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     torch.cuda.empty_cache()
     t = phase(f"phase 3, {olmo_cfg.name}", t)
 
-    eng, granite_paths = granite_engine_phase(granite_cfg, device, gen)
+    eng, granite_paths, baseline_k1g = granite_engine_phase(granite_cfg,
+                                                             device, gen)
     g_times, whole = granite_timing_phase(eng, device, gen)
     del eng
     torch.cuda.empty_cache()
@@ -3175,7 +3455,15 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     t = phase("phase 9, sharded serving over torch.distributed", t)
 
     sharded_training_phase(olmo_cfg, smi)
-    phase("phase 10, sharded training over torch.distributed", t)
+    t = phase("phase 10, sharded training over torch.distributed", t)
+
+    music_paths, music_times = [], None
+    if musicgen_cfg is not None:
+        music_paths, music_times = musicgen_phase(musicgen_cfg, device, gen)
+        t = phase(f"phase 11, {musicgen_cfg.name} (frames) through K1", t)
+
+    example_paths = examples_phase(device)
+    phase("phase 12, the examples on the card", t)
 
     def record(name, paths, times, scope, **extra):
         ms, plain_ms, b_ms, by, lib_ms = times
@@ -3188,11 +3476,25 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
 
     k1_paths = ([p["bitmap_spmm"] for p in olmo_paths] + [chaos_path]
                 + [p["bitmap_spmm"] for p in granite_paths]
-                + ssm["bitmap_spmm"] + [trained["bitmap_spmm"]] + sharded)
+                + ssm["bitmap_spmm"] + [trained["bitmap_spmm"]] + sharded
+                + [p["bitmap_spmm"] for p in music_paths]
+                + [p for k, p in example_paths if k == "bitmap_spmm"])
     k1g_paths = ([p["bitmap_spmm_grouped"] for p in granite_paths]
-                 + ssm["bitmap_spmm_grouped"])
+                 + ssm["bitmap_spmm_grouped"]
+                 + [p for k, p in example_paths
+                    if k == "bitmap_spmm_grouped"])
     g1 = g_times["bitmap_spmm"]
     g_k1_per_step = granite_paths[0]["bitmap_spmm"]["launches_per_step"]
+
+    music = {}
+    if music_times is not None:
+        ms, plain_ms, b_ms, by, lib_ms = music_times
+        music["musicgen"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": lib_ms,
+            "ms_scope": f"one {musicgen_cfg.name} decode step: "
+                        f"{music_paths[0]['bitmap_spmm']['launches_per_step']}"
+                        f" launches at M=4"}
 
     def rwkv(name):
         ms, plain_ms, b_ms, by, lib_ms = ssm["times"][name]
@@ -3210,7 +3512,7 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                         "bound_by": g1[3], "library_ms": g1[4],
                         "ms_scope": f"one {granite_cfg.name} decode step: "
                                     f"{g_k1_per_step} launches at M=4"},
-               rwkv6=rwkv("bitmap_spmm")),
+               rwkv6=rwkv("bitmap_spmm"), **music),
         record("bitmap_spmm_grouped", k1g_paths,
                g_times["bitmap_spmm_grouped"],
                f"one {granite_cfg.name} decode step: "
@@ -3221,7 +3523,12 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                            "library_ms": whole[4],
                            "ms_scope": "both kernels' launches of one "
                                        "decode step"},
-               rwkv6=rwkv("bitmap_spmm_grouped"))] + [
+               rwkv6=rwkv("bitmap_spmm_grouped"),
+               baseline_mode_decode_step={
+                   "launches": baseline_k1g,
+                   "scope": f"one {granite_cfg.name} decode step in "
+                            f"baseline mode (global MoE dispatch); a "
+                            f"check, not counted in launches"})] + [
         record(name, [path], tuple(timings[0][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")),
             f"{timings[0]['shape']}, bf16; library "
@@ -3248,7 +3555,8 @@ def main() -> int:
                  get_config("gemma3-4b"), torch.device("cuda"), gen,
                  rwkv_cfg=get_config("rwkv6-3b"),
                  jamba_cfg=get_config("jamba-v0.1-52b"),
-                 jamba_smoke=get_smoke_config("jamba-v0.1-52b"), smi=smi)
+                 jamba_smoke=get_smoke_config("jamba-v0.1-52b"), smi=smi,
+                 musicgen_cfg=get_config("musicgen-medium"))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s"
           f" on {smi} (the kernels line: launches over the main-path runs; "
           f"times per decode step for K1 and K1g, per call for K2-K4)")

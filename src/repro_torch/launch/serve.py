@@ -1,4 +1,5 @@
-"""Serving CLI of the port: seeded Poisson arrivals into ``ServeEngine``.
+"""Serving CLI of the port: seeded Poisson arrivals into ``ServeEngine``
+(``serve_trace``); ``serve`` is the lock-step mode.
 
 Runs on the card by default; ``--device cpu`` takes the plain PyTorch
 path (the kernels' plain versions):
@@ -10,6 +11,9 @@ A seeded fault campaign under the auditor, with every artifact:
   ... --audit --chaos-seed 3 --trace-out out/trace.json \
       --events-out out/events.jsonl --metrics-out out/metrics.json \
       --traffic-out out/traffic.json
+musicgen's frames frontend (per-step frame embeddings, no prompt
+tokens looked up):
+  ... --arch musicgen-medium --smoke --sparsity 0.5 --device cpu
 Sharded serving, one process per rank (``torch.distributed.run`` sets
 RANK / WORLD_SIZE / LOCAL_RANK; only rank 0 prints and writes files):
   python -m torch.distributed.run --nproc-per-node 2 \
@@ -23,11 +27,49 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import BACKENDS, init_world
 from repro_torch.serve import (FaultPlan, ServeEngine, ServeOverloaded,
                                poisson_trace)
+
+
+def serve(arch: str, smoke: bool = True, batch: int = 4, steps: int = 32,
+          max_len: int = 128, sparsity: float = 0.0, seed: int = 0,
+          model_parallel: int = 1, device: str | None = None) -> dict:
+    """Lock-step mode: ``batch`` requests at once, each decoding
+    ``steps`` tokens; returns {"tokens": (batch, steps) int32,
+    "tok_per_s", "report"}.  ``head_sparsity=0.0``: the whole stack and
+    the head stream through the bitmap path, packed losslessly.  The
+    frames frontend (musicgen) draws its per-step embeddings from the
+    engine's key folded with the step counter.  ``device`` defaults to
+    ``cuda`` and raises without a card."""
+    eng = ServeEngine.from_arch(arch, smoke=smoke, num_slots=batch,
+                                max_len=max_len, sparsity=sparsity,
+                                seed=seed, model_parallel=model_parallel,
+                                head_sparsity=0.0, device=device)
+    return lock_step(eng, steps, seed)
+
+
+def lock_step(eng: ServeEngine, steps: int, seed: int) -> dict:
+    """``serve``'s run on a built engine: one request per slot, its one
+    prompt token from ``np.random.default_rng(seed)``, all submitted at
+    once."""
+    batch = eng.num_slots
+    if eng.sparsity > 0:
+        print(f"serving at {eng.weight_sparsity:.2%} weight sparsity "
+              f"(head compression {eng.head_compression:.2f}x)")
+    rng = np.random.default_rng(seed)
+    first = rng.integers(0, eng.cfg.vocab_size, (batch, 1))
+    reqs = [eng.submit([int(first[b, 0])], max_new_tokens=steps)
+            for b in range(batch)]
+    rep = eng.run()
+    tokens = np.stack([np.asarray(r.tokens, np.int32) for r in reqs])
+    print(f"decoded {steps} steps x batch {batch} in {rep['wall_s']:.2f}s "
+          f"({rep['tok_per_s']:.1f} tok/s)")
+    return {"tokens": tokens, "tok_per_s": rep["tok_per_s"],
+            "report": rep}
 
 
 def serve_trace(arch: str, smoke: bool = True, slots: int = 4,

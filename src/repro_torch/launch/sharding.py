@@ -23,13 +23,18 @@ rank keeps the shard its place on the ``model`` axis names
 (``keep_local``), and the serving steps gather them
 (``launch/steps.build_serve_step_spmd``).
 
-Not ported: ``cache_specs`` and ``named``, which feed only the
-reference's dry run and ``NamedSharding``; the ``REPRO_MOE_EP`` override
-and ``perf_flags.baseline_mode``.
+``REPRO_MOE_EP`` (``1``: expert parallelism, ``0``: tensor parallelism)
+forces the MoE rules; baseline mode (``models/perf_flags.py``, the
+``baseline`` argument, read from the environment only when it is None)
+takes tensor parallelism and lays the Adam moments out like the params
+(no ZeRO-1), as the reference's do.  Not ported: ``cache_specs`` and
+``named``, which feed only the reference's dry run and
+``NamedSharding``.
 """
 from __future__ import annotations
 
 import math
+import os
 import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -38,6 +43,7 @@ import torch
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import param_shapes
+from repro_torch.models.perf_flags import baseline_mode
 from repro_torch.sparse.format import (BitmapWeight, all_gather_concat,
                                        keep_part)
 from repro_torch.sparse.pruning import keystr, tree_items, tree_map
@@ -76,11 +82,18 @@ _MOE_RULES_EP = [
 ]
 
 
-def _moe_rules(cfg: ModelConfig, mesh, serve: bool) -> list:
-    """Expert parallelism when the expert count divides the model axis
-    and the specs are for training; serving keeps tensor parallelism
-    inside each expert (the reference's default branch)."""
-    if (not serve and cfg.num_experts
+def _moe_rules(cfg: ModelConfig, mesh, serve: bool, baseline: bool) -> list:
+    """``REPRO_MOE_EP`` first (``1``: expert parallelism, ``0``: tensor
+    parallelism); then baseline mode takes tensor parallelism; else
+    expert parallelism when the expert count divides the model axis and
+    the specs are for training, while serving keeps tensor parallelism
+    inside each expert (the reference's rules)."""
+    force = os.environ.get("REPRO_MOE_EP", "")
+    if force == "1":
+        return _MOE_RULES_EP
+    if force == "0":
+        return _MOE_RULES
+    if (not baseline and not serve and cfg.num_experts
             and cfg.num_experts % mesh.shape["model"] == 0):
         return _MOE_RULES_EP
     return _MOE_RULES
@@ -92,9 +105,12 @@ def _fit(spec: Spec, shape: Sequence[int], mesh) -> Spec:
                  for dim, ax in zip(shape, spec))
 
 
-def param_specs(cfg: ModelConfig, mesh, serve: bool = False) -> Dict:
-    """A spec per parameter (a tree shaped as ``param_shapes(cfg)``)."""
-    rules = _moe_rules(cfg, mesh, serve) + _RULES
+def param_specs(cfg: ModelConfig, mesh, serve: bool = False,
+                baseline: Optional[bool] = None) -> Dict:
+    """A spec per parameter (a tree shaped as ``param_shapes(cfg)``);
+    ``baseline`` None reads ``perf_flags.baseline_mode()``."""
+    baseline = baseline_mode(baseline)
+    rules = _moe_rules(cfg, mesh, serve, baseline) + _RULES
 
     def rule_for(path, shape):
         name = keystr(path)
@@ -110,13 +126,16 @@ def param_specs(cfg: ModelConfig, mesh, serve: bool = False) -> Dict:
     return tree_map(rule_for, param_shapes(cfg))
 
 
-def opt_specs(cfg: ModelConfig, mesh) -> Dict:
+def opt_specs(cfg: ModelConfig, mesh,
+              baseline: Optional[bool] = None) -> Dict:
     """The Adam moments' specs: the params' specs with the first spare
     dim that the data axis divides sharded over ``data`` (ZeRO-1: each
     data rank owns a slice of the moments and updates that slice of the
-    params)."""
-    ps = param_specs(cfg, mesh)
-    if "data" not in mesh.axis_names:
+    params); in baseline mode (``baseline`` None reads
+    ``perf_flags.baseline_mode()``) the params' specs."""
+    baseline = baseline_mode(baseline)
+    ps = param_specs(cfg, mesh, baseline=baseline)
+    if baseline or "data" not in mesh.axis_names:
         return {"m": ps, "v": ps, "step": ()}
     dsize = mesh.shape["data"]
     shapes = dict(tree_items(param_shapes(cfg)))

@@ -24,21 +24,25 @@ from repro_torch.launch.sharding import (batch_specs, bitmap_sharded,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, lm_head_weight,
                                       loss_fn, prefill_hidden)
+from repro_torch.models.perf_flags import baseline_mode
+from repro_torch.prng import normal
 from repro_torch.sparse.format import (all_gather_concat, all_reduce_sum,
                                        gather_bitmap)
 from repro_torch.sparse.pruning import tree_items, tree_map
 from repro_torch.train import optimizer as opt_lib
 
 
-def loss_and_grads(params: Dict, batch: Dict, cfg: ModelConfig):
+def loss_and_grads(params: Dict, batch: Dict, cfg: ModelConfig,
+                   moe_global: bool = False):
     """(loss, metrics, grads) of ``loss_fn`` at ``params``; the grads a
     dict shaped as ``params``, in the params' dtype, zero for leaves the
-    loss does not read (as ``jax.grad`` gives)."""
+    loss does not read (as ``jax.grad`` gives).  ``moe_global``: baseline
+    mode's MoE dispatch (``models/perf_flags.py``)."""
     leaves = tree_items(params)
     with torch.enable_grad():
         live = {p: l.detach().requires_grad_(True) for p, l in leaves}
         loss, metrics = loss_fn(tree_map(lambda p, _: live[p], params),
-                                batch, cfg)
+                                batch, cfg, moe_global)
         # a leaf the arch never reads (olmo's norm scales) gets zeros
         grads = torch.autograd.grad(loss, list(live.values()),
                                     materialize_grads=True)
@@ -48,20 +52,21 @@ def loss_and_grads(params: Dict, batch: Dict, cfg: ModelConfig):
 
 
 def accumulated_grads(params: Dict, batch: Dict, cfg: ModelConfig,
-                      accum_steps: int = 1) -> Tuple[Dict, Dict]:
+                      accum_steps: int = 1,
+                      moe_global: bool = False) -> Tuple[Dict, Dict]:
     """(grads, metrics) of one train step's batch.  ``accum_steps`` > 1
     splits it into that many equal microbatches (consecutive rows),
     sums their float32 gradients and divides by the count; the loss is
     the token-weighted mean."""
     if accum_steps == 1:
-        _, metrics, grads = loss_and_grads(params, batch, cfg)
+        _, metrics, grads = loss_and_grads(params, batch, cfg, moe_global)
         return grads, metrics
     gsum, lsum, csum = {}, 0, 0
     for i in range(accum_steps):
         micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
                               *v.shape[1:])[i]
                  for k, v in batch.items()}
-        _, m, g = loss_and_grads(params, micro, cfg)
+        _, m, g = loss_and_grads(params, micro, cfg, moe_global)
         for p, t in tree_items(g):
             gsum[p] = t.float() + gsum.get(p, 0)
         lsum = lsum + m["loss"] * m["tokens"]
@@ -72,7 +77,8 @@ def accumulated_grads(params: Dict, batch: Dict, cfg: ModelConfig,
 
 def build_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
                      prune_masks: Optional[Dict] = None,
-                     accum_steps: int = 1) -> Callable:
+                     accum_steps: int = 1,
+                     baseline: Optional[bool] = None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics), the
     update written into ``params`` and ``opt_state`` in place.
 
@@ -81,10 +87,14 @@ def build_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
     weights stay exactly zero (masked-gradient sparse training).
     ``accum_steps``: ``accumulated_grads``.  Metrics: ``loss``,
     ``tokens``, ``grad_norm``, ``lr`` (tensors on the device).
+    ``baseline`` (None: ``perf_flags.baseline_mode()``, read here, once)
+    takes baseline mode's MoE dispatch.
     """
+    moe_global = baseline_mode(baseline)
 
     def train_step(params, opt_state, batch):
-        grads, metrics = accumulated_grads(params, batch, cfg, accum_steps)
+        grads, metrics = accumulated_grads(params, batch, cfg, accum_steps,
+                                           moe_global)
         if prune_masks is not None:
             masks = dict(tree_items(prune_masks))
             with torch.no_grad():                # the grads are this step's
@@ -101,25 +111,31 @@ def build_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
     return train_step
 
 
-def build_eval_step(cfg: ModelConfig) -> Callable:
-    """(params, batch) -> ``loss_fn``'s metrics, without gradients."""
+def build_eval_step(cfg: ModelConfig,
+                    baseline: Optional[bool] = None) -> Callable:
+    """(params, batch) -> ``loss_fn``'s metrics, without gradients;
+    ``baseline`` as in ``build_train_step``."""
+    moe_global = baseline_mode(baseline)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        _, metrics = loss_fn(params, batch, cfg)
+        _, metrics = loss_fn(params, batch, cfg, moe_global)
         return metrics
     return eval_step
 
 
-def build_prefill_logits_step(cfg: ModelConfig) -> Callable:
+def build_prefill_logits_step(cfg: ModelConfig,
+                              baseline: Optional[bool] = None) -> Callable:
     """Forward over the full prompt; returns the last position's float32
     logits (B, V).  No KV is written: the serving engine's cache-writing
-    prefill is ``build_prefill_step``."""
+    prefill is ``build_prefill_step``.  ``baseline`` as in
+    ``build_train_step``."""
+    moe_global = baseline_mode(baseline)
 
     @torch.no_grad()
     def prefill_logits_step(params, batch):
         hidden = forward(params, cfg, tokens=batch.get("tokens"),
-                         embeds=batch.get("embeds"))
+                         embeds=batch.get("embeds"), moe_global=moe_global)
         w = lm_head_weight(params, cfg).to(hidden.dtype)
         return (hidden[:, -1] @ w).float()
 
@@ -136,7 +152,8 @@ def gumbel_noise(seed: int, pos: int, vocab: int) -> torch.Tensor:
     return -torch.log(-torch.log(u.clamp_min(1e-20)))
 
 
-def build_serve_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
+def build_serve_step(cfg: ModelConfig, top_k: int = 0,
+                     baseline: Optional[bool] = None) -> Callable:
     """One decode step + head: (params, cache, tokens, pos) ->
     (next_token (B,), logits (B, V), cache).
 
@@ -151,14 +168,27 @@ def build_serve_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
     top-k; without it ``top_k`` (given here) applies to every slot.
     ``page_tables`` ({bname: (B, page_slots) int64}) serves the KV cache
     from paged pools (``serve/paging.py``).
+
+    ``embed_key`` (the frames frontend, ``tokens`` None): a
+    ``repro_torch.prng`` key from which the step draws the (B, 1, D)
+    float32 frame embeddings on the device, B the whole slot batch (idle
+    slots included), as the reference's ``jax.random.normal`` does.
+    ``baseline`` as in ``build_train_step``.
     """
+    moe_global = baseline_mode(baseline)
 
     def serve_step(params, cache, tokens, pos, lm_weight=None, packed=None,
                    seeds=None, temperature=None, top_ks=None,
-                   page_tables=None):
+                   page_tables=None, embed_key=None):
+        embeds = None
+        if embed_key is not None:
+            b = pos.shape[0] if pos.dim() else 1
+            embeds = normal(embed_key, (b, 1, cfg.d_model),
+                            device=pos.device)
         logits, cache = decode_step(params, cache, cfg, tokens, pos,
-                                    lm_weight=lm_weight, packed=packed,
-                                    page_tables=page_tables)
+                                    embeds=embeds, lm_weight=lm_weight,
+                                    packed=packed, page_tables=page_tables,
+                                    moe_global=moe_global)
         next_tok = logits.argmax(-1)
         if seeds is None or temperature is None:
             return next_tok, logits, cache
@@ -183,7 +213,8 @@ def build_serve_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
     return serve_step
 
 
-def build_prefill_step(cfg: ModelConfig) -> Callable:
+def build_prefill_step(cfg: ModelConfig,
+                       baseline: Optional[bool] = None) -> Callable:
     """One chunked-prefill call: (params, cache, tokens, pos, lens) ->
     (hidden (B, C, D), cache).
 
@@ -194,13 +225,15 @@ def build_prefill_step(cfg: ModelConfig) -> Callable:
     in place; every projection runs at M = B·C (``packed`` routes them
     through the kernels, as in the decode step).  No LM head: the first
     token comes from the first decode step after prefill.
-    ``page_tables`` as in the decode step.
+    ``page_tables`` and ``baseline`` as in the decode step.
     """
+    moe_global = baseline_mode(baseline)
 
     def prefill_step(params, cache, tokens, pos, lens, packed=None,
                      page_tables=None):
         return prefill_hidden(params, cache, cfg, tokens, pos, lens,
-                              packed=packed, page_tables=page_tables)
+                              packed=packed, page_tables=page_tables,
+                              moe_global=moe_global)
 
     return prefill_step
 
@@ -360,7 +393,8 @@ def _timed_gathers(params, cache, packed, lm_weight, pools, mesh, specs,
 
 
 def build_serve_step_spmd(cfg: ModelConfig, mesh, top_k: int = 0,
-                          data_pools: Sequence[str] = ()) -> Callable:
+                          data_pools: Sequence[str] = (),
+                          baseline: Optional[bool] = None) -> Callable:
     """``build_serve_step`` for a rank of ``mesh``: the same signature
     and the same tokens, from sharded storage.  ``params`` holds this
     rank's parts by ``param_specs(cfg, mesh)``; ``dense`` (a keyword of
@@ -370,22 +404,24 @@ def build_serve_step_spmd(cfg: ModelConfig, mesh, top_k: int = 0,
     engine passes its pool names when ``kv.shards`` equals the data
     extent); packed weights are gathered where they are sharded over the
     model axis (``sharding.bitmap_sharded``).  ``serve_step.stats`` is
-    the gathers' ``GatherStats``."""
-    base = build_serve_step(cfg, top_k=top_k)
+    the gathers' ``GatherStats``.  ``baseline`` as in the one-rank step."""
+    baseline = baseline_mode(baseline)
+    base = build_serve_step(cfg, top_k=top_k, baseline=baseline)
     pools = frozenset(data_pools)
-    specs = dict(tree_items(param_specs(cfg, mesh)))
+    specs = dict(tree_items(param_specs(cfg, mesh, baseline=baseline)))
     stats = GatherStats()
 
     def serve_step(params, cache, tokens, pos, lm_weight=None, packed=None,
                    seeds=None, temperature=None, top_ks=None,
-                   page_tables=None, dense=frozenset()):
+                   page_tables=None, embed_key=None, dense=frozenset()):
         view, full_cache, full_packed, lm = _timed_gathers(
             params, cache, packed, lm_weight, pools, mesh, specs, dense,
             stats)
+        # every rank draws the same frame embeddings from the same key
         nxt, logits, full_cache = base(
             view, full_cache, tokens, pos, lm_weight=lm,
             packed=full_packed, seeds=seeds, temperature=temperature,
-            top_ks=top_ks, page_tables=page_tables)
+            top_ks=top_ks, page_tables=page_tables, embed_key=embed_key)
         _slice_cache(cache, full_cache, pools, mesh)
         return nxt, logits, cache
 
@@ -394,13 +430,15 @@ def build_serve_step_spmd(cfg: ModelConfig, mesh, top_k: int = 0,
 
 
 def build_prefill_step_spmd(cfg: ModelConfig, mesh,
-                            data_pools: Sequence[str] = ()) -> Callable:
+                            data_pools: Sequence[str] = (),
+                            baseline: Optional[bool] = None) -> Callable:
     """``build_prefill_step`` for a rank of ``mesh``: the chunked-prefill
     counterpart of ``build_serve_step_spmd`` (the same gathers, no
     head)."""
-    base = build_prefill_step(cfg)
+    baseline = baseline_mode(baseline)
+    base = build_prefill_step(cfg, baseline=baseline)
     pools = frozenset(data_pools)
-    specs = dict(tree_items(param_specs(cfg, mesh)))
+    specs = dict(tree_items(param_specs(cfg, mesh, baseline=baseline)))
     stats = GatherStats()
 
     def prefill_step(params, cache, tokens, pos, lens, packed=None,
@@ -429,20 +467,24 @@ def build_prefill_step_spmd(cfg: ModelConfig, mesh,
 # over ``data`` to rebuild its part.
 
 
-def _batch_rows(batch: Dict, cfg: ModelConfig, mesh
+def _batch_rows(batch: Dict, cfg: ModelConfig, mesh, moe_global: bool
                 ) -> Optional[Tuple[int, int]]:
     """This data rank's rows [r0, r1) of the batch (``batch_specs``), or
-    None when the batch is not split: a data axis of 1, or rows that do
-    not divide over it (every rank then takes the whole batch)."""
+    None when the batch is not split: a data axis of 1, rows that do not
+    divide over it, or baseline mode's global MoE dispatch, whose
+    capacity ranks the whole batch's tokens (every rank then takes the
+    whole batch)."""
     b = batch["targets"].shape[0]
-    if mesh.data == 1 or batch_specs(cfg, mesh, b)("targets")[0] is None:
+    if (mesh.data == 1 or batch_specs(cfg, mesh, b)("targets")[0] is None
+            or (cfg.num_experts and moe_global)):
         return None
     per = b // mesh.data
     return mesh.data_rank * per, (mesh.data_rank + 1) * per
 
 
 def _split_grads(params: Dict, batch: Dict, cfg: ModelConfig,
-                 rows: Tuple[int, int], accum_steps: int):
+                 rows: Tuple[int, int], accum_steps: int,
+                 moe_global: bool):
     """(grads, loss sum) of this rank's rows.  Each microbatch's part is
     weighted by its share of that microbatch's live targets (counted over
     the whole batch, which every rank has), so that the sum over the data
@@ -457,7 +499,8 @@ def _split_grads(params: Dict, batch: Dict, cfg: ModelConfig,
         if a >= e:
             continue
         _, met, g = loss_and_grads(params, {k: v[a:e]
-                                            for k, v in batch.items()}, cfg)
+                                            for k, v in batch.items()}, cfg,
+                                   moe_global)
         w = met["tokens"] / live[i].clamp_min(1)
         for p, t in tree_items(g):
             gsum[p] = t.float() * w + gsum.get(p, 0)
@@ -467,7 +510,8 @@ def _split_grads(params: Dict, batch: Dict, cfg: ModelConfig,
 
 def build_train_step_spmd(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
                           mesh, prune_masks: Optional[Dict] = None,
-                          accum_steps: int = 1) -> Callable:
+                          accum_steps: int = 1,
+                          baseline: Optional[bool] = None) -> Callable:
     """``build_train_step`` for a rank of ``mesh``: (params, opt_state,
     batch) -> (params, opt_state, metrics), with ``params`` and
     ``prune_masks`` this rank's parts by ``param_specs`` and the moments
@@ -481,9 +525,13 @@ def build_train_step_spmd(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
     parameters, so the result is the one-rank step's bit for bit.  The
     metrics are equal on every rank.  ``train_step.stats``: the gathers'
     and the all-reduces' ``GatherStats`` (an all-reduce's bytes are what
-    a ring receives, 2·(n−1)/n of the tensor)."""
-    pspecs = dict(tree_items(param_specs(cfg, mesh)))
-    ospecs = dict(tree_items(opt_specs(cfg, mesh)["m"]))
+    a ring receives, 2·(n−1)/n of the tensor).  ``baseline`` (None:
+    ``perf_flags.baseline_mode()``, read here, once) takes baseline
+    mode's specs and MoE dispatch; the params and moments must then be
+    sharded by ``param_specs`` / ``opt_specs`` with the same flag."""
+    baseline = baseline_mode(baseline)
+    pspecs = dict(tree_items(param_specs(cfg, mesh, baseline=baseline)))
+    ospecs = dict(tree_items(opt_specs(cfg, mesh, baseline=baseline)["m"]))
     # the ZeRO-1 block of a rank's part: its moments' data-axis slice
     zspecs = {p: tuple(e if e == "data" else None for e in s)
               for p, s in ospecs.items()}
@@ -499,11 +547,13 @@ def build_train_step_spmd(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
             masks, got = dict(tree_items(masks)), got + n
         _sync(dev)
         gather_s = time.perf_counter() - t0
-        rows = _batch_rows(batch, cfg, mesh)
+        rows = _batch_rows(batch, cfg, mesh, baseline)
         if rows is None:
-            grads, metrics = accumulated_grads(full, batch, cfg, accum_steps)
+            grads, metrics = accumulated_grads(full, batch, cfg, accum_steps,
+                                               baseline)
         else:
-            grads, lsum = _split_grads(full, batch, cfg, rows, accum_steps)
+            grads, lsum = _split_grads(full, batch, cfg, rows, accum_steps,
+                                       baseline)
             _sync(dev)
             t0 = time.perf_counter()
             group = mesh.group("data")

@@ -49,6 +49,7 @@ from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import (BACKENDS, init_world, make_elastic_mesh,
                                      world_size)
 from repro_torch.launch.steps import build_train_step, build_train_step_spmd
+from repro_torch.models.perf_flags import baseline_mode
 from repro_torch.models.model import init_params
 from repro_torch.sparse.pruning import (global_l1_prune, sparsity_of,
                                         tree_map)
@@ -99,8 +100,10 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
         masks = tree_map(lambda _, p: p != 0, params)
         say(f"pruned to {sparsity_of(params):.2%} sparsity")
     opt_state = opt_lib.init(params)
-    pspecs = shd.param_specs(cfg, mesh)
-    specs = {"params": pspecs, "opt": shd.opt_specs(cfg, mesh)}
+    baseline = baseline_mode()          # REPRO_PERF_MODE, read once
+    pspecs = shd.param_specs(cfg, mesh, baseline=baseline)
+    specs = {"params": pspecs,
+             "opt": shd.opt_specs(cfg, mesh, baseline=baseline)}
     if sharded:
         params = shd.shard_tree(params, pspecs, mesh)
         opt_state = shd.shard_tree(opt_state, specs["opt"], mesh)
@@ -120,9 +123,11 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
             params, opt_state = state["params"], state["opt"]
             start_step = latest
 
-    step_fn = (build_train_step_spmd(cfg, opt_cfg, mesh, prune_masks=masks)
+    step_fn = (build_train_step_spmd(cfg, opt_cfg, mesh, prune_masks=masks,
+                                     baseline=baseline)
                if sharded else
-               build_train_step(cfg, opt_cfg, prune_masks=masks))
+               build_train_step(cfg, opt_cfg, prune_masks=masks,
+                                baseline=baseline))
     # every rank reads the whole step-indexed batch; the step takes its
     # rows
     data_cfg = DataConfig(global_batch=batch, seq_len=seq, seed=seed)

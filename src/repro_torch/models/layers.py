@@ -305,9 +305,12 @@ def top_k_lower_index(probs: torch.Tensor, k: int):
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
             packed: Optional[dict] = None,
-            impl: Optional[str] = None) -> torch.Tensor:
+            impl: Optional[str] = None,
+            global_dispatch: bool = False) -> torch.Tensor:
     """Sort-based top-k MoE with static per-row capacity (the reference's
-    ``moe_ffn``): x (B, S, D) -> (B, S, D).
+    ``moe_ffn``): x (B, S, D) -> (B, S, D).  ``global_dispatch`` (baseline
+    mode, ``perf_flags``, resolved where the step is built) takes
+    ``_moe_ffn_global`` instead.
 
     Each batch row dispatches on its own: capacity
     ``int(S·k·cf / E) + 1``, tokens past an expert's capacity dropped.
@@ -321,6 +324,28 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     adds, so it is deterministic on the card and equal to the reference
     in float32.  Every step is sync-free on the card.
     """
+    if global_dispatch:
+        return _moe_ffn_global(params, x, cfg, packed=packed, impl=impl)
+    return _moe_rows(params, x, cfg, packed, impl)
+
+
+def _moe_ffn_global(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                    packed: Optional[dict] = None,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """The reference's baseline dispatch: one argsort over all B·S
+    tokens, capacity ``int(B·S·k·cf / E) + 1`` for the whole batch, the
+    ``keep`` mask, the bucket scatter, the expert products (K1g on the
+    card for packed stacks) and the float32 scatter-add back.  That is
+    the per-row dispatch of the batch flattened into one row of B·S
+    tokens: the same sort, ranks, buckets and combine order."""
+    b, s, d = x.shape
+    return _moe_rows(params, x.reshape(1, b * s, d), cfg, packed,
+                     impl).reshape(b, s, d)
+
+
+def _moe_rows(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              packed: Optional[dict], impl: Optional[str]) -> torch.Tensor:
+    """The dispatch of ``moe_ffn``, each of x's rows on its own."""
     pk = packed or {}
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k

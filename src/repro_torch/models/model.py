@@ -203,9 +203,11 @@ def _apply_attn(p: Dict, x: torch.Tensor, cfg: ModelConfig, blk: BlockCfg,
 
 
 def _apply_block(bp: Dict, x: torch.Tensor, blk: BlockCfg, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor,
+                 moe_global: bool = False) -> torch.Tensor:
     """One block over the full sequence: x + mixer, then x + FFN.  MoE
-    routes each batch row on its own at capacity ``int(S·k·cf/E) + 1``."""
+    routes each batch row on its own at capacity ``int(S·k·cf/E) + 1``
+    (``moe_global``: all B·S tokens at once, ``L._moe_ffn_global``)."""
     if blk.mixer == "attn":
         x = x + _apply_attn(bp["attn"], x, cfg, blk, positions)
     elif blk.mixer == "mamba":
@@ -220,7 +222,7 @@ def _apply_block(bp: Dict, x: torch.Tensor, blk: BlockCfg, cfg: ModelConfig,
         x = x + L.mlp(bp["mlp"], xn, cfg)
     elif blk.ffn == "moe":
         xn = L.norm(x, bp["moe"].get("norm"), cfg.norm)
-        x = x + L.moe_ffn(bp["moe"], xn, cfg)
+        x = x + L.moe_ffn(bp["moe"], xn, cfg, global_dispatch=moe_global)
     elif blk.ffn == "rwkv_cm":
         xn = L.norm(x, bp["rwkv_cm"].get("norm"), cfg.norm)
         x = x + ssm.rwkv_channel_mix(bp["rwkv_cm"], xn)
@@ -242,8 +244,10 @@ def _unbind_periods(tree: Dict) -> list:
 def forward(params: Dict, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Final hidden states (B, S, D) after the final norm.
+            positions: Optional[torch.Tensor] = None,
+            moe_global: bool = False) -> torch.Tensor:
+    """Final hidden states (B, S, D) after the final norm.  ``moe_global``
+    (baseline mode, ``perf_flags``): the MoE blocks dispatch globally.
 
     Each period takes its slice of the period-stacked leaves
     (``_unbind_periods``), so gradients flow into the stacked leaf.  With
@@ -258,7 +262,8 @@ def forward(params: Dict, cfg: ModelConfig,
 
     def period_fn(x, per):
         for i, blk in enumerate(cfg.pattern):
-            x = _apply_block(periods[per][f"b{i}"], x, blk, cfg, positions)
+            x = _apply_block(periods[per][f"b{i}"], x, blk, cfg, positions,
+                             moe_global)
         return x
 
     for per in range(cfg.num_periods):
@@ -313,10 +318,10 @@ def lm_loss(params: Dict, hidden: torch.Tensor, targets: torch.Tensor,
     return loss, {"loss": loss, "tokens": count}
 
 
-def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
+            moe_global: bool = False) -> Tuple[torch.Tensor, Dict]:
     hidden = forward(params, cfg, tokens=batch.get("tokens"),
-                     embeds=batch.get("embeds"))
+                     embeds=batch.get("embeds"), moe_global=moe_global)
     return lm_loss(params, hidden, batch["targets"], cfg)
 
 # ------------------------------------------------------------- decode ------
@@ -472,7 +477,8 @@ def decode_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
                   embeds: Optional[torch.Tensor] = None,
                   packed: Optional[Dict] = None,
                   impl: Optional[str] = None,
-                  page_tables: Optional[Dict] = None
+                  page_tables: Optional[Dict] = None,
+                  moe_global: bool = False
                   ) -> Tuple[torch.Tensor, Dict]:
     """One decode step up to (and including) the final norm.
 
@@ -483,6 +489,8 @@ def decode_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
     where a tensor is served dense).  ``page_tables`` (``{bname: (B,
     page_slots)}`` int64 on the cache's device) switches attention blocks
     onto the paged pools; one table serves every period of its block.
+    ``moe_global`` (baseline mode): the MoE blocks rank the B tokens
+    together (``L._moe_ffn_global``).
     """
     x = embed_inputs(params, cfg, tokens, embeds)
     for per in range(cfg.num_periods):
@@ -504,7 +512,7 @@ def decode_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
                             packed=pw.get(blk.mixer), impl=impl)
                 x = x + o
                 _write_state(pc, st)
-            x = _ffn(bp, pw, x, cfg, blk, impl, pc)
+            x = _ffn(bp, pw, x, cfg, blk, impl, pc, moe_global)
     return L.norm(x, params.get("final_norm"), cfg.norm), cache
 
 
@@ -519,13 +527,15 @@ def _write_state(pc: Dict[str, torch.Tensor],
 
 def _ffn(bp: Dict, pw: Dict, x: torch.Tensor, cfg: ModelConfig,
          blk: BlockCfg, impl: Optional[str],
-         pc: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+         pc: Optional[Dict[str, torch.Tensor]] = None,
+         moe_global: bool = False) -> torch.Tensor:
     """The residual FFN sub-block of one layer: x (B, S, D) -> x + ffn.
     MoE dispatches each of the B·S tokens as its own row (x folded to
     (B·S, 1, D)), so a prefill chunk routes, and drops at capacity, token
-    for token as the decode steps would.  The RWKV channel-mix (decode
-    only) reads its ``cm_x_prev`` from the period's cache views ``pc``
-    and writes the normed input back there."""
+    for token as the decode steps would (``moe_global``: the B·S tokens
+    ranked together, as the reference's baseline mode does).  The RWKV
+    channel-mix (decode only) reads its ``cm_x_prev`` from the period's
+    cache views ``pc`` and writes the normed input back there."""
     if blk.ffn == "mlp":
         xn = L.norm(x, bp["mlp"].get("norm"), cfg.norm)
         return x + L.mlp(bp["mlp"], xn, cfg, packed=pw.get("mlp"),
@@ -534,7 +544,8 @@ def _ffn(bp: Dict, pw: Dict, x: torch.Tensor, cfg: ModelConfig,
         b, s, d = x.shape
         xn = L.norm(x, bp["moe"].get("norm"), cfg.norm)
         mo = L.moe_ffn(bp["moe"], xn.reshape(b * s, 1, d), cfg,
-                       packed=pw.get("moe"), impl=impl)
+                       packed=pw.get("moe"), impl=impl,
+                       global_dispatch=moe_global)
         return x + mo.reshape(b, s, d)
     if blk.ffn == "rwkv_cm":
         xn = L.norm(x, bp["rwkv_cm"].get("norm"), cfg.norm)
@@ -616,7 +627,8 @@ def prefill_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
                    embeds: Optional[torch.Tensor] = None,
                    packed: Optional[Dict] = None,
                    impl: Optional[str] = None,
-                   page_tables: Optional[Dict] = None
+                   page_tables: Optional[Dict] = None,
+                   moe_global: bool = False
                    ) -> Tuple[torch.Tensor, Dict]:
     """One chunked-prefill call: C prompt tokens per slot in one pass.
 
@@ -626,8 +638,8 @@ def prefill_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
     the final norm, cache) — the cache passed in, its C lines per slot
     written in place.  Projections run at M = B·C; MoE FFNs fold the
     chunk into the batch so expert capacity matches the decode path.
-    ``page_tables`` as in ``decode_hidden``.  Recurrent mixers
-    (mamba/rwkv) have no chunked path and raise.
+    ``page_tables`` and ``moe_global`` as in ``decode_hidden``.
+    Recurrent mixers (mamba/rwkv) have no chunked path and raise.
     """
     x = embed_inputs(params, cfg, tokens, embeds)
     for per in range(cfg.num_periods):
@@ -642,7 +654,7 @@ def prefill_hidden(params: Dict, cache: Dict, cfg: ModelConfig,
             x = x + _prefill_attn(bp["attn"], x, pc, cfg, blk, pos, lens,
                                   packed=pw.get("attn"), impl=impl,
                                   page_table=(page_tables or {}).get(bname))
-            x = _ffn(bp, pw, x, cfg, blk, impl)
+            x = _ffn(bp, pw, x, cfg, blk, impl, moe_global=moe_global)
     return L.norm(x, params.get("final_norm"), cfg.norm), cache
 
 
@@ -672,11 +684,13 @@ def decode_step(params: Dict, cache: Dict, cfg: ModelConfig,
                 embeds: Optional[torch.Tensor] = None, lm_weight=None,
                 packed: Optional[Dict] = None,
                 lm_impl: Optional[str] = None,
-                page_tables: Optional[Dict] = None
+                page_tables: Optional[Dict] = None,
+                moe_global: bool = False
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step + LM head: (logits (B, V), cache); ``page_tables``
-    routes the KV cache through the paged pools (``decode_hidden``)."""
+    routes the KV cache through the paged pools and ``moe_global`` the
+    MoE blocks through the global dispatch (``decode_hidden``)."""
     x, cache = decode_hidden(params, cache, cfg, tokens, pos,
                              embeds=embeds, packed=packed, impl=lm_impl,
-                             page_tables=page_tables)
+                             page_tables=page_tables, moe_global=moe_global)
     return head_logits(params, cfg, x[:, 0], lm_weight, lm_impl), cache

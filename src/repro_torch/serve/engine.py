@@ -48,8 +48,13 @@ takes the kernels' plain versions); with no card and no explicit CPU it
 raises.  Recurrent blocks (mamba, RWKV6 and its channel-mix) serve by
 the prompt walk, their per-slot state zeroed on every admission, a
 re-admission after preemption or quarantine included.  The frames
-frontend is not ported, nor is the traffic ledger's compiled-HLO
-cross-check (the port has no HLO).
+frontend (musicgen) feeds each decode step embeddings drawn on the
+device from the reference's key, ``PRNGKey(seed + 0x5eed)`` folded with
+the step counter, replayed without JAX by ``repro_torch.prng``; so it
+serves the reference's tokens.  Baseline mode (``REPRO_PERF_MODE``,
+``models/perf_flags.py``) is read once, when the engine is built, and
+its steps take the global MoE dispatch.  The traffic ledger's
+compiled-HLO cross-check is not ported (the port has no HLO).
 
 **Sharded serving.**  In a ``torch.distributed`` world of more than one
 rank, every rank builds the same engine and runs the same host loop (the
@@ -106,6 +111,8 @@ from repro_torch.launch.steps import (build_prefill_step,
                                       build_serve_step_spmd)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, lm_head_weight
+from repro_torch.models.perf_flags import baseline_mode
+from repro_torch.prng import fold_in, prng_key
 from repro_torch.serve.cache import SlotKVCache
 from repro_torch.serve.errors import (DeadlineExceeded, OutOfPages,
                                       RequestRejected, ServeOverloaded)
@@ -153,13 +160,6 @@ def pack_lm_head(params, cfg: ModelConfig, sparsity: float = 0.0,
                                             cache_dense=cache_dense),
                                 shards, "col")
     return pack_bitmap(w, block=block, cache_dense=cache_dense)
-
-
-def _unported(cfg: ModelConfig) -> List[str]:
-    """What ``cfg`` needs that the engine does not serve: the frames
-    frontend, whose per-step embeds the reference draws from a
-    ``jax.random`` key the port cannot replay."""
-    return ["frames frontend"] if cfg.frontend == "frames" else []
 
 
 def prefill_fallback(cfg: ModelConfig) -> Optional[str]:
@@ -312,11 +312,6 @@ class ServeEngine:
         traffic ledger's artifact (``serve/traffic.py``).
         """
         self.device = resolve_device(device)
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(missing)} not ported to the "
-                f"PyTorch engine yet")
         if world_size() == 1 and (model_parallel > 1
                                   or (kv_shards or 1) > 1):
             raise ValueError(
@@ -422,8 +417,10 @@ class ServeEngine:
         # parts kept (pruned and packed whole above, for the global
         # threshold and the packs)
         self.param_specs: Dict[tuple, tuple] = {}
+        # baseline mode (``REPRO_PERF_MODE``), read once for every step
+        self.baseline = baseline_mode()
         if self._spmd:
-            specs = param_specs(cfg, self.mesh)
+            specs = param_specs(cfg, self.mesh, baseline=self.baseline)
             self.param_specs = dict(tree_items(specs))
             self.params = shard_tree(params, specs, self.mesh)
             del params
@@ -477,8 +474,10 @@ class ServeEngine:
                                if self.page_len and kv_actual > 1 else ())
         self.top_k_default = top_k
         self._step_fn = (build_serve_step_spmd(
-            cfg, self.mesh, top_k=top_k, data_pools=self._kv_data_pools)
-            if self._spmd else build_serve_step(cfg, top_k=top_k))
+            cfg, self.mesh, top_k=top_k, data_pools=self._kv_data_pools,
+            baseline=self.baseline)
+            if self._spmd else build_serve_step(cfg, top_k=top_k,
+                                                baseline=self.baseline))
         self.prefill_fallback = (prefill_fallback(cfg) if prefill_chunk > 0
                                  else None)
         if self.prefill_fallback:
@@ -491,8 +490,10 @@ class ServeEngine:
             PrefillPlanner(num_slots, prefill_chunk) if prefill_chunk
             else None)
         self._prefill_fn = (build_prefill_step_spmd(
-            cfg, self.mesh, data_pools=self._kv_data_pools)
-            if self._spmd else build_prefill_step(cfg))
+            cfg, self.mesh, data_pools=self._kv_data_pools,
+            baseline=self.baseline)
+            if self._spmd else build_prefill_step(cfg,
+                                                  baseline=self.baseline))
         # engine-owned accounting lives in the metrics registry, under
         # the reference's names; the report sections render views of it
         m = self.metrics
@@ -509,6 +510,10 @@ class ServeEngine:
         self._use_sampling = False
         self._use_topk_vec = False
         self._seed = seed
+        # frames frontend: each decode step's embeddings are drawn on the
+        # device from this key folded with the step counter on the host
+        # (the reference's key, replayed by ``repro_torch.prng``)
+        self._embed_key = prng_key(seed + 0x5eed)
         self._warm = False
         self._c_slot_steps = m.counter(
             "steps.active_slots",
@@ -1072,6 +1077,11 @@ class ServeEngine:
                 kw["top_ks"] = self._topk
         if self._spmd:
             kw["dense"] = self.dense_gather
+        if self.cfg.frontend == "frames":
+            # the step draws its frame embeddings from the key folded with
+            # the step counter; no token is looked up
+            kw["embed_key"] = fold_in(self._embed_key, self._steps)
+            tok = None
         return self._step_fn(self.params, self.kv.cache, tok, pos, **kw)
 
     def _prefill(self, tokens: np.ndarray, pos: np.ndarray,

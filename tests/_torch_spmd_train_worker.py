@@ -86,7 +86,8 @@ def _flat_np(tree, prefix: str) -> dict:
 
 
 def step_case(case: dict, params_np: dict, arrays: dict) -> dict:
-    """One sharded train step at the case's mesh; the gathered params go
+    """One sharded train step at the case's mesh (its specs and its step
+    in baseline mode for a ``baseline`` case); the gathered params go
     into ``arrays``, the metrics and per-rank checks are returned."""
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.mesh import make_elastic_mesh
@@ -96,13 +97,16 @@ def step_case(case: dict, params_np: dict, arrays: dict) -> dict:
     cfg, params, masks, batch = step_inputs(case["arch"], params_np,
                                             case["prune"])
     mesh = make_elastic_mesh(case["mp"], "cpu")
-    ps, os_ = shd.param_specs(cfg, mesh), shd.opt_specs(cfg, mesh)
+    baseline = case.get("baseline", False)
+    ps = shd.param_specs(cfg, mesh, baseline=baseline)
+    os_ = shd.opt_specs(cfg, mesh, baseline=baseline)
     parts = shd.shard_tree(params, ps, mesh)
     opt = shd.shard_tree(opt_lib.init(params), os_, mesh)
     mparts = shd.shard_tree(masks, ps, mesh) if masks is not None else None
     step = build_train_step_spmd(cfg, opt_lib.OptConfig(**OPT), mesh,
                                  prune_masks=mparts,
-                                 accum_steps=case["accum"])
+                                 accum_steps=case["accum"],
+                                 baseline=baseline)
     parts, opt, m = step(parts, opt, batch)
     pruned_zero = True
     if mparts is not None:
@@ -125,6 +129,7 @@ def step_case(case: dict, params_np: dict, arrays: dict) -> dict:
             "param_model_sharded": sum(
                 t.numel() * t.element_size() for p, t in tree_items(params)
                 if shd.sharded_on(dict(tree_items(ps))[p], "model", mesh)),
+            "param_part_elems": sum(t.numel() for _, t in tree_items(parts)),
             "moment_elems": moment, "moment_whole_elems": moment_whole,
             "moment_data_elems": moment_data,
             "gathers": step.stats["gather"].calls,

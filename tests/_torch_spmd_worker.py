@@ -29,6 +29,12 @@ CHAOS_PROMPTS = [[1, 2, 3, 4, 5, 6, 7, 8, 9, 10], [4, 5, 6],
                  [1, 2, 3, 4, 5, 6, 7, 8], [2, 4, 6, 8]]
 
 
+def prompts(cfg) -> list:
+    """``PROMPTS`` within the config's vocabulary (musicgen smoke's is
+    128 tokens; every other smoke vocabulary holds them as they are)."""
+    return [[t % cfg.vocab_size for t in p] for p in PROMPTS]
+
+
 def smoke_config(arch: str):
     from repro_torch.configs import get_smoke_config
     return dataclasses.replace(get_smoke_config(arch),
@@ -65,12 +71,12 @@ def serve(sc: dict, params, mp: int = 1) -> dict:
     """One scenario's run on this process's world: tokens, fallbacks,
     the shard accounting and the allocator's audit."""
     from repro_torch.serve import ServeEngine
+    cfg = smoke_config(sc["arch"])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")       # granite's head fallback
-        eng = ServeEngine(smoke_config(sc["arch"]), params=params,
-                          device="cpu", model_parallel=mp,
-                          **engine_kwargs(sc))
-    for i, p in enumerate(PROMPTS):
+        eng = ServeEngine(cfg, params=params, device="cpu",
+                          model_parallel=mp, **engine_kwargs(sc))
+    for i, p in enumerate(prompts(cfg)):
         eng.submit(p, max_new_tokens=6, arrival=float(i // 2),
                    temperature=(0.8 if i % 2 else 0.0), seed=100 + i,
                    top_k=(8 if i % 2 else None))

@@ -162,12 +162,37 @@ def test_engine_rejects_and_counts():
     assert eng.decode_steps == 2 + 4
 
 
-def test_unported_blocks_raise_typed():
-    """Only musicgen's frames frontend is refused: its per-step embeds
-    come from a ``jax.random`` key the port cannot replay."""
-    with pytest.raises(NotImplementedError,
-                       match="frames frontend not ported"):
-        PtEngine(pt_smoke("musicgen-medium"), device="cpu")
+def test_frames_frontend_serves_reference_tokens():
+    """musicgen's frames frontend: every decode step's embeddings come
+    from ``PRNGKey(seed + 0x5eed)`` folded with the step counter, which
+    the port replays (``repro_torch.prng``).  On the same weights, in
+    float32, with staggered arrivals (so slots idle and refill and the
+    step counter fast-forwards), the tokens equal the reference engine's
+    (run outside its mesh)."""
+    cfg = dataclasses.replace(ref_smoke("musicgen-medium"),
+                              compute_dtype="float32")
+    pcfg = dataclasses.replace(pt_smoke("musicgen-medium"),
+                               compute_dtype="float32")
+    kw = dict(num_slots=3, max_len=32, sparsity=0.5, seed=2)
+    ref = RefEngine(cfg, **kw)
+    params = jax.tree.map(np.asarray,
+                          ref_init_params(jax.random.PRNGKey(2), cfg))
+    pt = PtEngine(pcfg, params=params_from_numpy(params, device="cpu"),
+                  device="cpu", **kw)
+    trace = [dict(prompt=[1, 2, 3], max_new_tokens=6, arrival=0.0),
+             dict(prompt=[5], max_new_tokens=8, arrival=2.0),
+             dict(prompt=[7, 8], max_new_tokens=5, arrival=3.0),
+             dict(prompt=[9, 1, 2, 3, 4], max_new_tokens=6, arrival=5.0),
+             dict(prompt=[6], max_new_tokens=3, arrival=30.0)]
+    tokens = []
+    for eng in (ref, pt):
+        reqs = [eng.submit(**spec) for spec in trace]
+        eng.run()
+        tokens.append([[int(t) for t in r.tokens] for r in reqs])
+    assert tokens[1] == tokens[0]
+    assert [len(t) for t in tokens[1]] == [6, 8, 5, 6, 3]
+    # the idle gap fast-forwards the step counter past the last arrival
+    assert pt._steps == ref._steps >= 30
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",

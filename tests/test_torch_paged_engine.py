@@ -208,8 +208,7 @@ def test_fallback_reasons_and_warnings_match_reference():
     """Without paging, prefix reuse and preemption fall back with the
     reference engine's reasons and warnings; an arch with no attention
     block falls back from paging; frames and recurrent archs from
-    reuse.  The port's engine warns as the reference's does (olmo-1b,
-    rwkv6)."""
+    reuse.  The port's engine warns as the reference's does."""
     for arch, kw in (("olmo-1b", dict(prefix_reuse=True, preempt=True)),
                      ("rwkv6-3b", dict(paged=True, prefix_reuse=True,
                                        preempt=True)),
@@ -225,15 +224,14 @@ def test_fallback_reasons_and_warnings_match_reference():
                        "preempt": ref.preempt_fallback}, arch
         ref_msgs = [str(w.message) for w in caught
                     if "fell back" in str(w.message)]
-        if arch != "musicgen-medium":     # frames: not ported
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                pt = PtEngine(pt_smoke(arch), num_slots=2, max_len=16,
-                              device="cpu", **kw)
-            assert [str(w.message) for w in caught
-                    if "fell back" in str(w.message)] == ref_msgs
-            assert not pt.prefix_reuse and not pt.preempt
-            assert pt.report()["fallbacks"] == ref.fallbacks
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pt = PtEngine(pt_smoke(arch), num_slots=2, max_len=16,
+                          device="cpu", **kw)
+        assert [str(w.message) for w in caught
+                if "fell back" in str(w.message)] == ref_msgs
+        assert not pt.prefix_reuse and not pt.preempt
+        assert pt.report()["fallbacks"] == ref.fallbacks
     reason = kv_fallbacks(pt_smoke("jamba-v0.1-52b"), True, True, False)
     assert "recurrent" in reason["prefix_reuse"] and not reason["paging"]
 

@@ -6,7 +6,8 @@ engine serve the same traces here meanwhile.
 The scenarios are the reference's ``test_serve_spmd.py`` four, with
 ``model_parallel`` cut from {1, 2, 4} over 8 devices to a world of 4
 (so the data axis, and with it the KV shards, is 4 // mp), plus rwkv6
-smoke at mp 2 and the reference's sharded chaos and ``kv_shard`` runs
+smoke and musicgen smoke (the frames frontend) at mp 2 and the
+reference's sharded chaos and ``kv_shard`` runs
 (``test_paging_sharded.py``).  Per scenario and mp: tokens bit-equal to
 the port's one-rank engine (greedy and sampled), greedy tokens equal to
 the reference engine's in float32 (not for rwkv6, whose reference engine
@@ -67,6 +68,11 @@ SCENARIOS = {
     "rwkv6-sparse-contig-decode": dict(
         arch="rwkv6-3b", sparsity=0.5, paged=False, prefill_chunk=0,
         num_slots=4, mps=[2]),
+    # the frames frontend: every rank draws the same embeddings from the
+    # same key folded with the step counter
+    "musicgen-sparse-contig-decode": dict(
+        arch="musicgen-medium", sparsity=0.5, paged=False,
+        prefill_chunk=0, num_slots=4, mps=[2]),
 }
 # stream_weights=False at mp 2: every model-sharded dense leaf gathered
 DENSE_STACK = dict(arch="olmo-1b", sparsity=0.5, paged=False,
@@ -104,10 +110,11 @@ def _free_port():
 def _ref_tokens(sc):
     """The reference one-device engine's tokens for the scenario."""
     kw = worker.engine_kwargs(sc)
+    cfg = _ref_config(sc["arch"])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        eng = RefEngine(_ref_config(sc["arch"]), **kw)
-    for i, p in enumerate(worker.PROMPTS):
+        eng = RefEngine(cfg, **kw)
+    for i, p in enumerate(worker.prompts(cfg)):
         eng.submit(p, max_new_tokens=6, arrival=float(i // 2),
                    temperature=(0.8 if i % 2 else 0.0), seed=100 + i,
                    top_k=(8 if i % 2 else None))

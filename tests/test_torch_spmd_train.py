@@ -8,7 +8,13 @@ experts: expert parallelism) and jamba smoke, the reference
 ``test_spmd_matches_single_device``'s archs (jamba cut to two blocks of
 every kind), on a batch of 8 x 16 whose
 data halves hold different numbers of live targets.  (b) (data 4, model
-1) on olmo with global-L1 masks and ``accum_steps`` 2.  Each against the
+1) on olmo with global-L1 masks and ``accum_steps`` 2.  (b') Baseline
+mode (``REPRO_PERF_MODE=baseline`` for the reference, ``baseline=True``
+for the port's specs and steps): olmo at (data 4, model 1), the moments
+laid out like the params (no ZeRO-1); moonshot at (data 2, model 2),
+tensor-parallel experts and the global MoE dispatch, whose capacity
+ranks the whole batch's tokens, so every data rank takes the whole
+batch and no gradient is all-reduced.  Each against the
 port's one-rank ``build_train_step``: loss within 1e-5 relative, params
 within 1e-4 (a tenth of the learning rate: AdamW's first step moves each
 element by lr·g/(|g| + eps), so a gradient element near eps carries its
@@ -20,6 +26,7 @@ over 4 data ranks against the reference's on 4 fake CPU devices.  (d)
 and again with its last checkpoint dropped and resumed: bit-equal.  (e) The CLI
 under ``torch.distributed.run``, started beside the world.
 """
+import contextlib
 import json
 import os
 import socket
@@ -57,9 +64,28 @@ CASES = [dict(name="olmo-dp2-tp2", arch="olmo-1b", mp=2, prune=False,
          dict(name="jamba-dp2-tp2", arch="jamba-v0.1-52b", mp=2,
               prune=False, accum=1),
          dict(name="olmo-dp4-masked-accum2", arch="olmo-1b", mp=1,
-              prune=True, accum=2)]
+              prune=True, accum=2),
+         dict(name="olmo-dp4-baseline", arch="olmo-1b", mp=1, prune=False,
+              accum=1, baseline=True),
+         dict(name="moonshot-dp2-tp2-baseline", arch="moonshot-v1-16b-a3b",
+              mp=2, prune=False, accum=1, baseline=True)]
 LOSS_REL, PARAM_ATOL = 1e-5, 1e-4           # against the one-rank port
 REF_LOSS, REF_PARAM = 1e-3, 5e-3            # against the reference
+
+
+@contextlib.contextmanager
+def _perf_mode(case):
+    """``REPRO_PERF_MODE=baseline`` while the reference traces a
+    ``baseline`` case's step (it reads the variable at trace time)."""
+    old = os.environ.pop("REPRO_PERF_MODE", None)
+    if case.get("baseline"):
+        os.environ["REPRO_PERF_MODE"] = "baseline"
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_PERF_MODE", None)
+        if old is not None:
+            os.environ["REPRO_PERF_MODE"] = old
 
 
 def _free_port():
@@ -79,7 +105,8 @@ def _one_rank(case, params_np):
     cfg, params, masks, batch = worker.step_inputs(case["arch"], params_np,
                                                    case["prune"])
     step = build_train_step(cfg, opt_lib.OptConfig(**worker.OPT),
-                            prune_masks=masks, accum_steps=case["accum"])
+                            prune_masks=masks, accum_steps=case["accum"],
+                            baseline=case.get("baseline", False))
     p, _, m = step(params, opt_lib.init(params), batch)
     return ({k: float(v) for k, v in m.items()},
             {"/".join(path): t.numpy() for path, t in tree_items(p)})
@@ -95,9 +122,10 @@ def _reference(case, params_np):
     step = jax.jit(ref_step(rcfg, ref_opt.OptConfig(**worker.OPT),
                             prune_masks=rmasks, accum_steps=case["accum"]))
     rp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
-    p, _, m = step(rp, ref_opt.init(rp),
-                   {k: jnp.asarray(v.numpy(), jnp.int32)
-                    for k, v in batch.items()})
+    with _perf_mode(case):
+        p, _, m = step(rp, ref_opt.init(rp),
+                       {k: jnp.asarray(v.numpy(), jnp.int32)
+                        for k, v in batch.items()})
     return ({k: float(v) for k, v in m.items()},
             {"/".join(k.key for k in path): np.asarray(t) for path, t in
              jax.tree_util.tree_flatten_with_path(p)[0]})
@@ -221,6 +249,15 @@ def test_sharded_step_matches_one_rank_and_reference(runs, case):
     one_m, one_p = runs["single"][name]
     ref_m, ref_p = runs["ref"][name]
     assert abs(one_m["loss"] - ref_m["loss"]) < REF_LOSS
+    # the data ranks split the batch unless the global MoE dispatch ranks
+    # all of its tokens (baseline mode on an arch with experts)
+    moe_global = bool(case.get("baseline")
+                      and worker.smoke_config(case["arch"]).num_experts)
+    split = WORLD // case["mp"] > 1 and not moe_global
+    if moe_global:
+        # the global dispatch drops other tokens than the per-row one
+        default = runs["single"][name.replace("-baseline", "")][0]
+        assert abs(one_m["loss"] - default["loss"]) > 1e-4, (one_m, default)
     for rank, res in enumerate(runs["ranks"]):
         r = res["steps"][name]
         ctx = f"{name} rank {rank}"
@@ -243,7 +280,14 @@ def test_sharded_step_matches_one_rank_and_reference(runs, case):
                                        atol=REF_PARAM,
                                        err_msg=f"{ctx} {path}")
         assert r["gathers"] == 1, ctx
-        assert r["all_reduces"] == (1 if WORLD // case["mp"] > 1 else 0), ctx
+        assert r["all_reduces"] == (1 if split else 0), ctx
+        if case.get("baseline"):
+            # baseline mode: the moments are laid out like the params
+            # (no ZeRO-1), so each rank updates its whole part
+            assert r["moment_data_elems"] == 0, ctx
+            assert r["moment_elems"] == r["param_part_elems"], ctx
+            assert (r["moment_elems"] == r["moment_whole_elems"]) == \
+                (case["mp"] == 1), ctx
 
 
 def test_model_axis_halves_params_and_data_axis_splits_moments(runs):
