@@ -229,6 +229,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (``examples/torch/``: quickstart, serve_batched, train_sparse_lm),
    each printing ``OK``; their K1 / K1g launches are counted and join
    the kernels line.
+13. olmo-1b at full width again (sparsity 0.5, 4 slots, ``max_len``
+   256), serving sampled requests: (a) a seeded Poisson trace of 8
+   requests, every other one sampled (T 0.8 / 1.0, per-request top-k 0
+   / 40, seeds of their own), contiguous then paged (pages of 16):
+   every budget served, 113 K1 launches per decode step, beside the
+   same trace all greedy on an engine of the same weights; then one
+   decode step with four set slots (two sampled at top-k 0 and 40, one
+   at top-k 3, one greedy): the keys folded on the card equal the CPU
+   replay's, their Gumbel bits equal, the Gumbel values within 1e-6,
+   and every sampled token equal to argmax(logits / T + gumbel) over
+   the slot's top-k (greedy: argmax), the Gumbel values replayed on the
+   CPU; one decode step through the kernels against the plain versions
+   (phase 3's rule).  (b) ``eng.traffic.crosscheck()`` with the card's
+   dispatch: the decode step counted on meta tensors, its bytes against
+   the modeled floor and the reference's band (1, 8), and the same step
+   executed under the counter, equal op for op to the meta count.  (c)
+   That decode step as a one-rank dry-run cell (``dryrun.count_cell``
+   on meta copies): its peak bytes beside ``max_memory_allocated`` of
+   the executed step after ``reset_peak_memory_stats``, and the gap.
+   (d) ``python -m repro_torch.launch.dryrun --arch olmo-1b --shape
+   decode_32k`` on the host (a fake world of 256 ranks, meta tensors):
+   its record line and seconds.
 
 Bounds are the larger of the bytes a call must move over 3.35 TB/s and
 its operations over 989 TFLOP/s (bf16), with this run's non-zeros, live
@@ -1874,8 +1896,10 @@ def chaos_phase(base, shared, device, gen) -> dict:
         assert metrics["schema"] == "repro.serve.metrics/v1"
         traffic = strict_json(files["traffic_out"])
         assert traffic["schema"] == "repro.serve.traffic/v1"
-        reason = traffic["traffic"]["crosscheck"]["reason"]
-        assert reason
+        cx = traffic["traffic"]["crosscheck"]["decode"]
+        assert cx["compiled_bytes"] > 0 and cx["compiled_flops"] > 0
+        reason = (f"decode counted/modeled {cx['ratio']:.3f} in "
+                  f"{cx['tolerance']}")
         print(f"telemetry: trace {stats['steps']} steps, "
               f"{stats['requests']} requests, phase coverage "
               f"{stats['agg_coverage']:.3f} | {n_events} events | metrics "
@@ -3370,6 +3394,215 @@ def examples_phase(device) -> list:
     return paths
 
 
+# ------------------------------------- phase 13: sampled tokens, counts ----
+
+# (temperature, top-k) of the sampled requests, in turn; None: greedy
+SAMPLED = ((0.8, 0), None, (1.0, 40), None)
+
+
+def sampled_trace(vocab: int, n: int = 8) -> list:
+    """Phase 13's trace: a seeded Poisson trace with every other
+    request sampled (``SAMPLED``), each with a seed of its own."""
+    from repro_torch.serve import poisson_trace
+    trace = poisson_trace(n, rate=0.5, seed=0, vocab_size=vocab,
+                          prompt_len=(1, 4), max_new=(8, 24))
+    for i, spec in enumerate(trace):
+        knob = SAMPLED[i % len(SAMPLED)]
+        if knob is not None:
+            spec.update(temperature=knob[0], top_k=knob[1], seed=900 + i)
+    return trace
+
+
+def sampler_check(eng) -> dict:
+    """One decode step of ``eng`` with four set slots (T, top-k): (0.8,
+    0), (1.0, 40), (0.9, 3), greedy.  The keys folded with the slots'
+    positions on the card, their Gumbel bits and values against the CPU
+    replay; every token against argmax(logits / T + gumbel) over the
+    slot's top-k, computed on the CPU from the step's logits."""
+    from repro_torch import prng
+    slots = ((0.8, 0), (1.0, 40), (0.9, 3), (0.0, 0))
+    eng._temp[:] = [t for t, _ in slots]
+    eng._topk[:] = [k for _, k in slots]
+    eng._keys[:] = [prng.prng_key(700 + i) for i in range(4)]
+    eng._pos[:] = [5, 17, 30, 100]
+    eng._tok[:] = [11, 12, 13, 14]
+    eng._use_sampling = eng._use_topk_vec = True
+    fn, args, kw = eng.traffic.step_call("decode", meta=False)
+    nxt, logits, _ = fn(*args, **kw)
+    sync()
+    vocab = logits.shape[-1]
+    keys = prng.fold_in_rows(kw["sample_keys"], args[3])
+    cpu_keys = prng.fold_in_rows(kw["sample_keys"].cpu(), args[3].cpu())
+    assert torch.equal(keys.cpu(), cpu_keys)
+    bits = prng.random_bits_rows(keys, vocab)
+    assert torch.equal(bits.cpu(), prng.random_bits_rows(cpu_keys, vocab))
+    g_card = prng.gumbel_rows(keys, vocab).cpu()
+    g = prng.gumbel_rows(cpu_keys, vocab)
+    g_err = float((g_card - g).abs().max())
+    assert g_err <= 1e-6, g_err
+    lg = logits.float().cpu()
+    want = []
+    for i, (t, k) in enumerate(slots):
+        if t == 0:
+            want.append(int(lg[i].argmax()))
+            continue
+        scaled = lg[i] / t
+        if k:
+            kth = scaled.sort(descending=True).values[k - 1]
+            scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+        want.append(int((scaled + g[i]).argmax()))
+    got = nxt.cpu().tolist()
+    assert got == want, (got, want)
+    print(f"sampler on the card: 4 slots (T, top-k) {list(slots)}: folded "
+          f"keys and {vocab} Gumbel bits per slot equal the CPU replay's, "
+          f"Gumbel values within {g_err:.3g} (limit 1e-6); tokens {got} "
+          f"equal argmax(logits / T + gumbel) over each slot's top-k")
+    return {"gumbel_max_abs_err": g_err, "tokens": got}
+
+
+def crosscheck_on_card(eng) -> dict:
+    """Phase 13b: the traffic ledger's cross-check with the card's
+    dispatch, and one decode step executed under the counter against
+    its meta count, op for op."""
+    t0 = time.perf_counter()
+    cc = eng.traffic.crosscheck()
+    cc_s = time.perf_counter() - t0
+    assert cc["dispatch"] == "cuda", cc["dispatch"]
+    d = cc["decode"]
+    lo, hi = d["tolerance"]
+    assert d["ratio"] >= lo, d
+    meta = eng.traffic.count("decode")
+    sync()
+    run = eng.traffic.count("decode", meta=False)
+    sync()
+    assert len(meta.ops) == len(run.ops)
+    for i, (a, b) in enumerate(zip(meta.ops, run.ops)):
+        assert a == b, (i, a, b)
+    assert meta.result() == run.result()
+    kernels = sum(1 for n, _, _ in run.ops if n == "bitmap_spmm")
+    assert kernels == per_step(eng)["bitmap_spmm"], kernels
+    by_op = {}
+    for name, _, nbytes in run.ops:
+        calls, total = by_op.get(name, (0, 0))
+        by_op[name] = (calls + 1, total + nbytes)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][1])[:8]
+    print("  counted bytes by op, largest first: " + ", ".join(
+        f"{n} {b / 1e9:.4f} GB ({c} calls)" for n, (c, b) in top))
+    print(f"crosscheck (cuda) decode: counted {d['compiled_bytes'] / 1e9:.4f}"
+          f" GB, {d['compiled_flops'] / 1e9:.3f} GFLOP vs modeled "
+          f"{d['modeled']['total_bytes'] / 1e9:.4f} GB: ratio "
+          f"{d['ratio']:.4f} in band [{lo:g}, {hi:g}]: "
+          f"{'yes' if d['within_band'] else 'NO'} ({cc_s:.2f}s) | executed"
+          f" step under the counter: {len(run.ops)} ops ({kernels} K1 "
+          f"calls) equal to the meta count op for op")
+    return d
+
+
+def dry_peak_against_card(eng) -> dict:
+    """Phase 13c: the decode step as a one-rank dry-run cell (meta
+    copies, MemTracker) against the executed step's
+    ``max_memory_allocated``."""
+    from repro_torch.launch.dryrun import count_cell
+    fn, args, kw = eng.traffic.step_call("decode")
+    _, mem = count_cell(lambda: fn(*args, **kw), {"args": args, "kw": kw})
+    # engines deleted earlier hold their tensors through reference
+    # cycles until the cyclic collector runs
+    gc.collect()
+    fn, args, kw = eng.traffic.step_call("decode", meta=False)
+    sync()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args, **kw)
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    gap = peak - mem["peak_bytes"]
+    print(f"dry-run one-rank decode cell: peak {mem['peak_bytes'] / 2**30:.4f}"
+          f" GiB (inputs {mem['argument_bytes'] / 2**30:.4f} GiB + temps "
+          f"{mem['temp_bytes'] / 2**20:.2f} MiB; computed on meta tensors) "
+          f"| the card: max_memory_allocated {peak / 2**30:.4f} GiB "
+          f"(resident before the step {resident / 2**30:.4f} GiB, temps "
+          f"{(peak - resident) / 2**20:.2f} MiB) | gap {gap / 2**20:.2f} MiB "
+          f"({100 * gap / peak:.2f} % of the card's peak)")
+    return {"dry_peak": mem["peak_bytes"], "dry_args": mem["argument_bytes"],
+            "card_peak": peak, "card_resident": resident}
+
+
+def dryrun_cell_on_host() -> float:
+    """Phase 13d: one production dry-run cell on the host, in a process
+    of its own (a fake world of 256 ranks); prints its record line."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "CUDA_VISIBLE_DEVICES": ""}
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "olmo-1b", "--shape", "decode_32k", "--out", out],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        assert run.returncode == 0, run.stderr[-3000:]
+        line = next(ln for ln in run.stdout.splitlines()
+                    if ln.startswith("[OK]"))
+        with open(os.path.join(out, "olmo-1b__decode_32k__16x16.json")) as f:
+            rec = json.load(f)
+    secs = time.perf_counter() - t0
+    mem = rec["memory_analysis"]
+    print(f"dry run on the host ({secs:.1f}s with the process start; "
+          f"computed on meta tensors): {line}")
+    print(f"  olmo-1b decode_32k per rank of 16x16: stored "
+          f"{mem['argument_bytes'] / 1e9:.3f} GB, peak "
+          f"{mem['peak_bytes'] / 1e9:.1f} GB (the gathered cache), wire "
+          f"{rec['collectives']['wire_bytes'] / 1e9:.1f} GB, "
+          f"{rec['flops_per_device'] / 1e12:.3f} TFLOP")
+    return secs
+
+
+def sampled_phase(cfg, device, gen) -> list:
+    """Phase 13; returns the path records of its two served runs."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, num_slots=4, max_len=256, sparsity=0.5, seed=0,
+                      device=device)
+    assert_no_dense_copy(eng)
+    trace = sampled_trace(cfg.vocab_size)
+    greedy = [{k: v for k, v in spec.items()
+               if k not in ("temperature", "top_k", "seed")}
+              for spec in trace]
+    base = ServeEngine(cfg, num_slots=4, max_len=256, params=eng.params,
+                       head_sparsity=eng.head_sparsity, device=device)
+    grep = serve(base, greedy, f"{cfg.name} the same trace all greedy, "
+                               f"contiguous (same weights)")
+    paths = [check_counts(base, grep, f"{cfg.name}, greedy, contiguous")]
+    greedy_ms = 1e3 * grep["wall_s"] / base.decode_steps
+    del base
+    gc.collect()
+    rep = serve(eng, trace, f"{cfg.name} sampled + greedy, contiguous")
+    paths.append(check_counts(eng, rep, f"{cfg.name}, sampled, contiguous"))
+    print(f"sampled against greedy (same weights and arrivals): "
+          f"{rep['tok_per_s']:.1f} vs {grep['tok_per_s']:.1f} tok/s | wall "
+          f"per decode step {1e3 * rep['wall_s'] / eng.decode_steps:.2f} vs "
+          f"{greedy_ms:.2f} ms")
+    if cfg.name == "olmo-1b":
+        assert per_step(eng)["bitmap_spmm"] == 113
+    decode_step_check(eng, gen)
+    paged = ServeEngine(cfg, num_slots=4, max_len=256, params=eng.params,
+                        head_sparsity=eng.head_sparsity, paged=True,
+                        page_len=16, device=device)
+    prep = serve(paged, trace, f"{cfg.name} sampled + greedy, paged")
+    paths.append(check_counts(paged, prep, f"{cfg.name}, sampled, paged"))
+    paged.kv.audit()
+    same = sum(a == b for a, b in zip(rep["tokens"], prep["tokens"]))
+    print(f"paged vs contiguous: {same} of {len(trace)} requests served "
+          f"the same tokens (bf16; sampled draws replay the same keys)")
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    sampler_check(eng)
+    crosscheck_on_card(eng)
+    dry_peak_against_card(eng)
+    del eng
+    torch.cuda.empty_cache()
+    dryrun_cell_on_host()
+    return [p["bitmap_spmm"] for p in paths]
+
+
 def phase(label: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[{label}: {now - t0:.1f}s]")
@@ -3384,7 +3617,7 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         mix_b_shapes=MIX_B_SHAPES, sharded_cases=SHARDED_CASES,
         sharded_expert_cases=SHARDED_EXPERT_CASES,
         smi: str = "", musicgen_cfg=None) -> dict:
-    """Phases 2-12 (11 with ``musicgen_cfg``); returns the kernels
+    """Phases 2-13 (11 with ``musicgen_cfg``); returns the kernels
     record.  A kernel's ``launches``
     sums its ``paths`` (each path's run with the counts set to 0 just
     before it).  K1's and K1g's ``ms``, ``plain_ms``, ``bound_ms`` and
@@ -3463,7 +3696,11 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         t = phase(f"phase 11, {musicgen_cfg.name} (frames) through K1", t)
 
     example_paths = examples_phase(device)
-    phase("phase 12, the examples on the card", t)
+    t = phase("phase 12, the examples on the card", t)
+
+    sampled_paths = sampled_phase(olmo_cfg, device, gen)
+    phase(f"phase 13, {olmo_cfg.name} sampled tokens, counts and the dry "
+          f"run", t)
 
     def record(name, paths, times, scope, **extra):
         ms, plain_ms, b_ms, by, lib_ms = times
@@ -3478,7 +3715,8 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                 + [p["bitmap_spmm"] for p in granite_paths]
                 + ssm["bitmap_spmm"] + [trained["bitmap_spmm"]] + sharded
                 + [p["bitmap_spmm"] for p in music_paths]
-                + [p for k, p in example_paths if k == "bitmap_spmm"])
+                + [p for k, p in example_paths if k == "bitmap_spmm"]
+                + sampled_paths)
     k1g_paths = ([p["bitmap_spmm_grouped"] for p in granite_paths]
                  + ssm["bitmap_spmm_grouped"]
                  + [p for k, p in example_paths

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch.counting import counted
 from repro_torch.kernels import LAUNCHES, _build, ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.tile_product import (PATH_FLAG, Plan,
@@ -81,6 +82,7 @@ def nm_spmm_cuda(x: torch.Tensor, w: NmWeight,
     return out
 
 
+@counted("nm_spmm", ops.product_charge)
 def nm_spmm(x: torch.Tensor, w: NmWeight, impl: str | None = None,
             out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ W`` with W N:M-compressed; x may be (..., K).  A CUDA

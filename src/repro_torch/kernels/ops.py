@@ -5,13 +5,21 @@ kernel (or the wrapper raises), a CPU tensor takes the plain PyTorch
 version.  ``impl="torch"`` asks for the plain version explicitly, on any
 device — a caller comparing the kernel with it does so; nothing falls
 back to it silently.
+
+Under an active ``launch/counters.OpCounter`` every entry point here
+(and ``kernels/nm_spmm.nm_spmm``) reports itself as one op
+(``counting.counted``): dense FLOPs, its operands' and result's bytes
+and the weight bytes its dispatch fetches; on meta tensors it returns an
+empty result of the right shape without running.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
+from repro_torch.counting import counted, tensor_bytes
 from repro_torch.kernels import bitmap_spmm as _bitmap_spmm
 from repro_torch.kernels import block_sparse as _block_sparse
 from repro_torch.kernels import flash_attention as _flash_attention
@@ -35,6 +43,42 @@ def resolve_impl(x: torch.Tensor, impl: str | None) -> str:
     return impl
 
 
+def weight_bytes(w, impl: str) -> int:
+    """The weight bytes one product fetches: the compressed format's
+    ``hbm_bytes`` on the card's kernel; the dense rendering the plain
+    version multiplies by (a bitmap weight's ``dense_cache`` when it has
+    one)."""
+    if impl == "cuda":
+        return w.hbm_bytes
+    dense = getattr(w, "dense_cache", None)
+    if dense is not None:
+        return dense.numel() * dense.element_size()
+    if isinstance(w, BitmapWeight):
+        return w.dense_bytes
+    return w.shape[0] * w.shape[1] * w.values.element_size()
+
+
+def product_charge(counter, x: torch.Tensor, w, impl: str | None = None,
+                   out_dtype: torch.dtype | None = None):
+    """A product's charge for ``counted``: FLOPs 2·(rows)·K·N over every
+    group, x's bytes and ``weight_bytes`` of the dispatch it takes (a
+    meta call: ``impl`` or the counter's dispatch)."""
+    impl = ((impl or counter.dispatch) if x.device.type == "meta"
+            else resolve_impl(x, impl))
+    return (2.0 * math.prod(x.shape[:-1]) * w.shape[0] * w.shape[1],
+            tensor_bytes(x) + weight_bytes(w, impl),
+            (*x.shape[:-1], w.shape[1]), out_dtype or x.dtype, x.device)
+
+
+def _attention_charge(counter, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, impl: str | None = None, **_):
+    """Attention's charge for ``counted``: 4·B·H·Sq·Skv·D FLOPs, q's,
+    k's and v's bytes."""
+    return (4.0 * math.prod(q.shape[:-1]) * k.shape[-2] * q.shape[-1],
+            tensor_bytes(q) + tensor_bytes(k) + tensor_bytes(v), q.shape,
+            q.dtype, q.device)
+
+
 def flat_product(x: torch.Tensor, w, impl: str | None, kernel, plain,
                  out_dtype: torch.dtype | None) -> torch.Tensor:
     """``x @ W`` through ``kernel`` (the CUDA wrapper) or ``plain``, as
@@ -49,6 +93,7 @@ def flat_product(x: torch.Tensor, w, impl: str | None, kernel, plain,
     return out.reshape(*x.shape[:-1], w.shape[1])
 
 
+@counted("bitmap_spmm", product_charge)
 def bitmap_spmm(x: torch.Tensor, w: BitmapWeight, impl: str | None = None,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ W`` with W bitmap-compressed; x may be (..., K).  A sharded
@@ -97,6 +142,7 @@ def _sharded_spmm(x: torch.Tensor, w: BitmapWeight, kernel,
     return total.to(out_dtype or x.dtype)
 
 
+@counted("bitmap_spmm_grouped", product_charge)
 def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
                         impl: str | None = None,
                         out_dtype: torch.dtype | None = None
@@ -117,6 +163,7 @@ def bitmap_spmm_grouped(x: torch.Tensor, w: BitmapWeight,
                                         out_dtype=out_dtype)
 
 
+@counted("block_sparse_matmul", product_charge)
 def block_sparse_matmul(x: torch.Tensor, w: BlockSparseWeight,
                         impl: str | None = None,
                         out_dtype: torch.dtype | None = None
@@ -127,6 +174,7 @@ def block_sparse_matmul(x: torch.Tensor, w: BlockSparseWeight,
                         _ref.block_sparse_matmul_ref, out_dtype)
 
 
+@counted("flash_attention", _attention_charge)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     impl: str | None = None, *, causal: bool = True,
                     window: int | None = None) -> torch.Tensor:

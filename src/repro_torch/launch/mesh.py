@@ -1,16 +1,24 @@
 """The (data, model) mesh over ``torch.distributed`` ranks.
 
-Port of ``repro/launch/mesh.py``'s ``make_elastic_mesh``: the largest
+Port of ``repro/launch/mesh.py``.  ``make_elastic_mesh``: the largest
 (data, model) mesh with ``model <= model_parallel`` that divides the
 world.  The world is the default process group, which the caller starts
 (``init_world`` reads what ``torch.distributed.run`` sets); a process
 with no group is a world of one rank, whose mesh is (1, 1) and has no
 groups.  Rank r sits at (r // model, r % model), the row-major layout of
 ``init_device_mesh``.
+
+``make_production_mesh``: the reference's production extents, (16, 16)
+``data × model`` or, multi-pod, (2, 16, 16) ``pod × data × model``, over
+a world of that size (the dry run's is a ``fake`` process group,
+``launch/dryrun.py``).  The ``pod`` axis is a mesh axis of its own, as
+in the reference: the batch shards over ``("pod", "data")`` (the
+``batch`` group), the Adam moments over ``data`` alone.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Dict, List, Optional
 
@@ -31,27 +39,49 @@ class Mesh:
     rank: int = 0
     backend: Optional[str] = None
     device_mesh: object = None          # torch DeviceMesh; None: one rank
-    axis_names = ("data", "model")      # a class constant, not a field
+    pod: int = 1
+    batch_group: object = None          # the (pod, data) group, pod > 1
+
+    @property
+    def axis_names(self) -> tuple:
+        return (("pod", "data", "model") if self.pod > 1
+                else ("data", "model"))
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.data, "model": self.model}
+        dims = {"data": self.data, "model": self.model}
+        return {"pod": self.pod, **dims} if self.pod > 1 else dims
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.pod * self.data * self.model
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.model
+        return (self.rank // self.model) % self.data
 
     @property
     def model_rank(self) -> int:
         return self.rank % self.model
 
+    @property
+    def batch(self) -> int:
+        """The batch axes' extent: pod × data."""
+        return self.pod * self.data
+
+    @property
+    def batch_rank(self) -> int:
+        return self.rank // self.model
+
     def group(self, axis: str):
         """The process group of this rank's row (``"model"``) or column
-        (``"data"``) of the mesh."""
+        (``"data"``) of the mesh, or of its (pod, data) plane
+        (``"batch"``: the data column without a pod axis)."""
+        if axis == "batch":
+            if self.pod == 1:
+                axis = "data"
+            else:
+                return self.batch_group
         return self.device_mesh.get_group(axis)
 
     def _host_side(self) -> torch.device:
@@ -114,6 +144,37 @@ def make_elastic_mesh(model_parallel: int = 1,
                                                 "model": backend})
         _MESHES[key] = Mesh(n // mp, mp, dist.get_rank(), backend, dm)
     return _MESHES[key]
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         device_type: str = "cpu") -> Mesh:
+    """The reference's production mesh over the current world, which
+    must have its size: (16, 16) ``data × model``, or with ``multi_pod``
+    (2, 16, 16) ``pod × data × model``.  Made once per process and
+    reused, as ``make_elastic_mesh``'s meshes."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    n = world_size()
+    if n != math.prod(shape):
+        raise ValueError(f"the production mesh {shape} needs a world of "
+                         f"{math.prod(shape)} ranks, this one has {n}")
+    key = (device_type, shape, dist.get_backend())
+    if key not in _MESHES:
+        from torch.distributed.device_mesh import init_device_mesh
+        names = ("pod", "data", "model") if multi_pod else ("data", "model")
+        dm = init_device_mesh(device_type, shape, mesh_dim_names=names)
+        batch = (dm["pod", "data"]._flatten("batch").get_group()
+                 if multi_pod else None)
+        _MESHES[key] = Mesh(shape[-2], shape[-1], dist.get_rank(),
+                            dist.get_backend(), dm,
+                            pod=shape[0] if multi_pod else 1,
+                            batch_group=batch)
+    return _MESHES[key]
+
+
+def mesh_tag(mesh: Mesh) -> str:
+    """The mesh's extents joined by ``x`` (``16x16``, ``2x16x16``), the
+    reference's record name."""
+    return "x".join(str(n) for n in mesh.shape.values())
 
 
 def init_world(backend: str, device: str = "cuda") -> torch.device:

@@ -188,7 +188,16 @@ def serve_trace(arch: str, smoke: bool = True, slots: int = 4,
                 f"{en['tops_per_watt_dense']:.2f})")
         cx = eng.traffic._crosscheck
         if cx is not None:
-            print(f"  crosscheck ({cx['dispatch']}): {cx['reason']}")
+            for ph in ("decode", "prefill"):
+                if ph in cx:
+                    c = cx[ph]
+                    lo, hi = c["tolerance"]
+                    print(f"  crosscheck ({cx['dispatch']}): {ph} "
+                          f"modeled-vs-counted: "
+                          f"{c['modeled']['total_bytes']/1e6:.2f}MB vs "
+                          f"{c['compiled_bytes']/1e6:.2f}MB (ratio "
+                          f"{c['ratio']:.2f}, band [{lo:g}, {hi:g}] "
+                          f"{'ok' if c['within_band'] else 'VIOLATED'})")
         if sparsity > 0:
             print(f"serving at {eng.weight_sparsity:.2%} weight sparsity "
                   f"(head compression {eng.head_compression:.2f}x)")

@@ -27,9 +27,9 @@ rank keeps the shard its place on the ``model`` axis names
 forces the MoE rules; baseline mode (``models/perf_flags.py``, the
 ``baseline`` argument, read from the environment only when it is None)
 takes tensor parallelism and lays the Adam moments out like the params
-(no ZeRO-1), as the reference's do.  Not ported: ``cache_specs`` and
-``named``, which feed only the reference's dry run and
-``NamedSharding``.
+(no ZeRO-1), as the reference's do.  ``cache_specs`` gives the decode
+cache's specs (the dry run's, ``launch/dryrun.py``).  Not ported:
+``named``: torch has no ``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import param_shapes
+from repro_torch.models.model import cache_structs, param_shapes
 from repro_torch.models.perf_flags import baseline_mode
 from repro_torch.sparse.format import (BitmapWeight, all_gather_concat,
                                        keep_part)
@@ -150,16 +150,22 @@ def opt_specs(cfg: ModelConfig, mesh,
     return {"m": ms, "v": ms, "step": ()}
 
 
+def _batch_axes(mesh, batch: int):
+    """The spec entry of a batch dim: the batch axes (``pod``, ``data``)
+    when they divide ``batch``, else None; one axis is named alone, as
+    ``PartitionSpec`` normalises it."""
+    baxes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    bsize = math.prod(mesh.shape[a] for a in baxes)
+    if batch % bsize == 0 and batch > 1:
+        return baxes[0] if len(baxes) == 1 else baxes
+    return None
+
+
 def batch_specs(cfg: ModelConfig, mesh, batch: int):
     """``spec(leaf_name)`` of a data batch's leaf (``tokens``,
     ``targets``, ``embeds``): the rows over the batch axes when they
     divide ``batch``, else replicated."""
-    baxes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    bsize = math.prod(mesh.shape[a] for a in baxes)
-    bspec = None
-    if batch % bsize == 0 and batch > 1:
-        # one axis is named alone, as ``PartitionSpec`` normalises it
-        bspec = baxes[0] if len(baxes) == 1 else baxes
+    bspec = _batch_axes(mesh, batch)
 
     def spec(leaf_name):
         if leaf_name == "embeds":
@@ -169,13 +175,62 @@ def batch_specs(cfg: ModelConfig, mesh, batch: int):
     return spec
 
 
+def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                shard_seq: bool = False,
+                baseline: Optional[bool] = None) -> Dict:
+    """A spec per leaf of ``cache_structs(cfg, batch, max_len)``, the
+    reference's rules: the batch dim over the batch axes; KV heads over
+    ``model`` where they divide it, else (outside baseline mode) the
+    sequence over ``model``; ``shard_seq`` (the batch-1 long-context
+    policy) puts the KV sequence over ``data``; mamba's inner dim over
+    ``model``; RWKV state and the ``x_prev`` leaves only over the batch.
+    ``baseline`` None reads ``perf_flags.baseline_mode()``."""
+    baseline = baseline_mode(baseline)
+    bspec = _batch_axes(mesh, batch)
+    model = mesh.shape["model"]
+
+    def rule_for(path, t):
+        name, shape = path[-1], t.shape
+        if name in ("k", "v"):                 # (P, B, C, KV, hd)
+            seq = ("data" if shard_seq and shape[2] % mesh.shape["data"] == 0
+                   else None)
+            kv = "model" if shape[3] % model == 0 else None
+            if not baseline and kv is None and seq is None \
+                    and shape[2] % model == 0:
+                seq = "model"
+            return (None, bspec, seq, kv, None)
+        if name == "h":                        # (P, B, dI, N)
+            return (None, bspec, "model" if shape[2] % model == 0 else None,
+                    None)
+        if name == "conv":                     # (P, B, K-1, dI)
+            return (None, bspec, None,
+                    "model" if shape[3] % model == 0 else None)
+        if name == "s":                        # (P, B, H, hd, hd)
+            return (None, bspec, None, None, None)
+        return (None, bspec, None)             # x_prev / cm_x_prev
+
+    return tree_map(rule_for, cache_structs(cfg, batch, max_len))
+
+
 # ------------------------------------------------------------ placement ----
 
 
-def _coord(mesh, axis: Optional[str]) -> Tuple[int, int]:
+def _axis(entry) -> Optional[str]:
+    """A spec entry as one axis name: a batch spec's ``("pod",
+    "data")`` is the ``batch`` axis (the mesh's (pod, data) plane), a
+    one-name tuple its name."""
+    if isinstance(entry, tuple):
+        return "batch" if len(entry) > 1 else entry[0]
+    return entry
+
+
+def _coord(mesh, axis) -> Tuple[int, int]:
     """(this rank's index, extent) on ``axis`` (None: 0 of 1)."""
+    axis = _axis(axis)
     if axis is None:
         return 0, 1
+    if axis == "batch":
+        return mesh.batch_rank, mesh.batch
     return ({"data": mesh.data_rank, "model": mesh.model_rank}[axis],
             mesh.shape[axis])
 
@@ -220,7 +275,7 @@ def _gather_dim(local: torch.Tensor, dim: int, mesh, axis: str
     ``dim``, in rank order.  ``all_gather_concat`` gathers along dim 0,
     so the dim moves to the front and back; a bool tensor travels as
     bits."""
-    n = mesh.shape[axis]
+    n = _coord(mesh, axis)[1]
     front = local.movedim(dim, 0).contiguous()
     if front.dtype == torch.bool:
         bits = _pack_bits(front)
@@ -237,14 +292,17 @@ def _gather_dim(local: torch.Tensor, dim: int, mesh, axis: str
 
 
 def gather_leaf(local: torch.Tensor, spec: Spec, mesh,
-                axes: Sequence[str] = ("data", "model")) -> torch.Tensor:
+                axes: Sequence[str] = ("batch", "data", "model")
+                ) -> torch.Tensor:
     """The whole tensor from every rank's part (a collective over each
-    sharded axis's group; ``data`` first, then ``model``).  ``axes``
+    sharded axis's group; ``batch`` (a batch spec's ``("pod",
+    "data")``) and ``data`` first, then ``model``).  ``axes``
     limits the gather to those axes: the result is then whole along
     their dims only.  A leaf sharded on no axis comes back as it is."""
+    names = [_axis(e) for e in spec]
     for axis in axes:
         if sharded_on(spec, axis, mesh):
-            local = _gather_dim(local, spec.index(axis), mesh, axis)
+            local = _gather_dim(local, names.index(axis), mesh, axis)
     return local
 
 
@@ -257,7 +315,7 @@ def shard_tree(tree: Dict, specs: Dict, mesh) -> Dict:
 
 
 def gather_tree(tree: Dict, specs: Dict, mesh,
-                axes: Sequence[str] = ("data", "model")) -> Dict:
+                axes: Sequence[str] = ("batch", "data", "model")) -> Dict:
     """``gather_leaf`` over a tree (every rank calls it alike)."""
     flat = dict(tree_items(specs))
     return tree_map(lambda p, t: gather_leaf(t, flat[p], mesh, axes), tree)
@@ -265,7 +323,8 @@ def gather_tree(tree: Dict, specs: Dict, mesh,
 
 def sharded_on(spec: Spec, axis: str, mesh) -> bool:
     """Whether ``spec`` splits a dim over ``axis`` on this mesh."""
-    return mesh.shape[axis] > 1 and axis in spec
+    return (axis in [_axis(e) for e in spec]
+            and _coord(mesh, axis)[1] > 1)
 
 
 def resident_bytes(tree: Dict) -> int:

@@ -6,9 +6,11 @@ forward, backward through ``torch.autograd.grad`` and an in-place AdamW
 update, with masked-gradient sparse training and gradient accumulation.
 The serve step is greedy argmax by default; slots with a temperature
 above 0 sample from ``softmax(logits / T)``, optionally truncated to
-their own top-k.  ``build_serve_step_spmd`` / ``build_prefill_step_spmd``
-and ``build_train_step_spmd`` run those steps on a rank of a sharded
-world (gather, then compute).
+their own top-k, drawing the reference's ``jax.random.categorical``
+from the reference's keys (``repro_torch.prng``).
+``build_serve_step_spmd`` / ``build_prefill_step_spmd`` and
+``build_train_step_spmd`` run those steps on a rank of a sharded world
+(gather, then compute).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, lm_head_weight,
                                       loss_fn, prefill_hidden)
 from repro_torch.models.perf_flags import baseline_mode
-from repro_torch.prng import normal
+from repro_torch.prng import categorical_rows, fold_in_rows, normal
 from repro_torch.sparse.format import (all_gather_concat, all_reduce_sum,
                                        gather_bitmap)
 from repro_torch.sparse.pruning import tree_items, tree_map
@@ -142,16 +144,6 @@ def build_prefill_logits_step(cfg: ModelConfig,
     return prefill_logits_step
 
 
-def gumbel_noise(seed: int, pos: int, vocab: int) -> torch.Tensor:
-    """Gumbel(0, 1) noise over the vocabulary for one request at one
-    position.  It depends only on (seed, pos), and is drawn on the CPU so
-    it is the same whatever device the logits lie on."""
-    g = torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32)
-                                      | (pos & 0xFFFFFFFF))
-    u = torch.rand(vocab, generator=g, dtype=torch.float32)
-    return -torch.log(-torch.log(u.clamp_min(1e-20)))
-
-
 def build_serve_step(cfg: ModelConfig, top_k: int = 0,
                      baseline: Optional[bool] = None) -> Callable:
     """One decode step + head: (params, cache, tokens, pos) ->
@@ -159,28 +151,32 @@ def build_serve_step(cfg: ModelConfig, top_k: int = 0,
 
     ``pos`` is a (B,) vector of per-slot positions (or a scalar).
     ``lm_weight`` / ``packed`` route the head and the block projections
-    through ``kernels/ops.bitmap_spmm``.  Sampling: with ``seeds`` ((B,)
-    ints) and ``temperature`` ((B,) float) a slot with T > 0 takes the
-    Gumbel-max sample of ``logits / T``, its noise a function of (its
-    seed, its position) only — so a request's sample at position p does
-    not depend on scheduling; T == 0 slots stay exactly greedy.
-    ``top_ks`` ((B,) ints, 0 = none) truncates each slot to its own
-    top-k; without it ``top_k`` (given here) applies to every slot.
+    through ``kernels/ops.bitmap_spmm``.  Sampling, as the reference's
+    step samples: with ``sample_keys`` ((B, 2) int64, one
+    ``prng.prng_key`` per slot) and ``temperature`` ((B,) float32), both
+    on the logits' device, each slot's key is folded with its position
+    and a slot with T > 0 takes ``jax.random.categorical`` of
+    ``logits / max(T, 1e-6)``; T == 0 slots stay exactly greedy.  So a
+    request's sample at position p depends only on (its key, p), not on
+    scheduling.  ``top_ks`` ((B,) int) truncates each slot to the values
+    at or above its own k-th largest (0 = none); without it ``top_k``
+    (given here) applies to every slot.  The whole draw runs over the
+    slot batch on the device, with no read back to the host.
     ``page_tables`` ({bname: (B, page_slots) int64}) serves the KV cache
     from paged pools (``serve/paging.py``).
 
     ``embed_key`` (the frames frontend, ``tokens`` None): a
     ``repro_torch.prng`` key from which the step draws the (B, 1, D)
     float32 frame embeddings on the device, B the whole slot batch (idle
-    slots included), as the reference's ``jax.random.normal`` does.
+    slots included), as the reference's ``jax.random.normal`` does;
+    ``embeds`` gives them instead (the dry run's inputs).
     ``baseline`` as in ``build_train_step``.
     """
     moe_global = baseline_mode(baseline)
 
     def serve_step(params, cache, tokens, pos, lm_weight=None, packed=None,
-                   seeds=None, temperature=None, top_ks=None,
-                   page_tables=None, embed_key=None):
-        embeds = None
+                   sample_keys=None, temperature=None, top_ks=None,
+                   page_tables=None, embed_key=None, embeds=None):
         if embed_key is not None:
             b = pos.shape[0] if pos.dim() else 1
             embeds = normal(embed_key, (b, 1, cfg.d_model),
@@ -190,25 +186,24 @@ def build_serve_step(cfg: ModelConfig, top_k: int = 0,
                                     packed=packed, page_tables=page_tables,
                                     moe_global=moe_global)
         next_tok = logits.argmax(-1)
-        if seeds is None or temperature is None:
+        if sample_keys is None or temperature is None:
             return next_tok, logits, cache
         b, vocab = logits.shape
-        posv = pos.expand(b) if pos.dim() == 0 else pos
-        hot = [i for i in range(b) if float(temperature[i]) > 0]
-        if not hot:
-            return next_tok, logits, cache
-        pos_host = posv.cpu()
-        for i in hot:
-            scaled = logits[i] / max(float(temperature[i]), 1e-6)
-            k = int(top_ks[i]) if top_ks is not None else top_k
-            if k > 0:
-                kth = torch.sort(scaled, descending=True).values[
-                    min(k, vocab) - 1]
-                scaled = scaled.masked_fill(scaled < kth, float("-inf"))
-            noise = gumbel_noise(int(seeds[i]), int(pos_host[i]),
-                                 vocab).to(scaled.device)
-            next_tok[i] = (scaled + noise).argmax()
-        return next_tok, logits, cache
+        keys = fold_in_rows(sample_keys, pos.expand(b))
+        scaled = logits.float() / temperature.clamp_min(1e-6)[:, None]
+        if top_ks is not None:
+            # each row keeps the values at or above its own k-th largest;
+            # k <= 0 rows keep the whole distribution
+            desc = scaled.sort(dim=-1, descending=True).values
+            kth = desc.gather(1, (top_ks.long() - 1).clamp(0, vocab - 1)
+                              [:, None])
+            scaled = scaled.masked_fill((top_ks[:, None] > 0)
+                                        & (scaled < kth), float("-inf"))
+        elif top_k > 0:
+            kth = scaled.topk(min(top_k, vocab), dim=-1).values[:, -1:]
+            scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+        sampled = categorical_rows(keys, scaled)
+        return torch.where(temperature > 0, sampled, next_tok), logits, cache
 
     return serve_step
 
@@ -412,7 +407,7 @@ def build_serve_step_spmd(cfg: ModelConfig, mesh, top_k: int = 0,
     stats = GatherStats()
 
     def serve_step(params, cache, tokens, pos, lm_weight=None, packed=None,
-                   seeds=None, temperature=None, top_ks=None,
+                   sample_keys=None, temperature=None, top_ks=None,
                    page_tables=None, embed_key=None, dense=frozenset()):
         view, full_cache, full_packed, lm = _timed_gathers(
             params, cache, packed, lm_weight, pools, mesh, specs, dense,
@@ -420,8 +415,9 @@ def build_serve_step_spmd(cfg: ModelConfig, mesh, top_k: int = 0,
         # every rank draws the same frame embeddings from the same key
         nxt, logits, full_cache = base(
             view, full_cache, tokens, pos, lm_weight=lm,
-            packed=full_packed, seeds=seeds, temperature=temperature,
-            top_ks=top_ks, page_tables=page_tables, embed_key=embed_key)
+            packed=full_packed, sample_keys=sample_keys,
+            temperature=temperature, top_ks=top_ks,
+            page_tables=page_tables, embed_key=embed_key)
         _slice_cache(cache, full_cache, pools, mesh)
         return nxt, logits, cache
 
@@ -469,17 +465,17 @@ def build_prefill_step_spmd(cfg: ModelConfig, mesh,
 
 def _batch_rows(batch: Dict, cfg: ModelConfig, mesh, moe_global: bool
                 ) -> Optional[Tuple[int, int]]:
-    """This data rank's rows [r0, r1) of the batch (``batch_specs``), or
-    None when the batch is not split: a data axis of 1, rows that do not
-    divide over it, or baseline mode's global MoE dispatch, whose
-    capacity ranks the whole batch's tokens (every rank then takes the
-    whole batch)."""
+    """This rank's rows [r0, r1) of the batch (``batch_specs``: over the
+    batch axes, pod × data), or None when the batch is not split: batch
+    axes of 1, rows that do not divide over them, or baseline mode's
+    global MoE dispatch, whose capacity ranks the whole batch's tokens
+    (every rank then takes the whole batch)."""
     b = batch["targets"].shape[0]
-    if (mesh.data == 1 or batch_specs(cfg, mesh, b)("targets")[0] is None
+    if (mesh.batch == 1 or batch_specs(cfg, mesh, b)("targets")[0] is None
             or (cfg.num_experts and moe_global)):
         return None
-    per = b // mesh.data
-    return mesh.data_rank * per, (mesh.data_rank + 1) * per
+    per = b // mesh.batch
+    return mesh.batch_rank * per, (mesh.batch_rank + 1) * per
 
 
 def _split_grads(params: Dict, batch: Dict, cfg: ModelConfig,
@@ -556,7 +552,7 @@ def build_train_step_spmd(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
                                        baseline)
             _sync(dev)
             t0 = time.perf_counter()
-            group = mesh.group("data")
+            group = mesh.group("batch")
             reduced = 0
             for _, g in tree_items(grads):
                 all_reduce_sum(g, group)
@@ -564,8 +560,8 @@ def build_train_step_spmd(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
             lsum = all_reduce_sum(lsum.reshape(1), group)[0]
             _sync(dev)
             stats["all_reduce"].add(time.perf_counter() - t0,
-                                    2 * (mesh.data - 1) * reduced
-                                    // mesh.data)
+                                    2 * (mesh.batch - 1) * reduced
+                                    // mesh.batch)
             tokens = (batch["targets"] >= 0).sum().float()
             metrics = {"loss": lsum / tokens.clamp_min(1), "tokens": tokens}
         del full

@@ -7,7 +7,7 @@ Port of ``repro/launch/train.py``:
     ``param_specs``, the Adam moments by ``opt_specs`` (ZeRO-1 over
     data), each rank's rows of the batch by ``batch_specs``
     (``launch/steps.build_train_step_spmd``); a world of one rank trains
-    alone and refuses ``model_parallel`` > 1;
+    alone, ``model_parallel`` clamped to 1 as the reference clamps it;
   * seeded init on the device, optional global-L1 pruning with masks
     kept through training (masked-gradient sparse training), both on the
     whole tree before it is sharded (the threshold is global);
@@ -46,8 +46,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, Prefetcher
 from repro_torch.device import resolve_device
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import (BACKENDS, init_world, make_elastic_mesh,
-                                     world_size)
+from repro_torch.launch.mesh import BACKENDS, init_world, make_elastic_mesh
 from repro_torch.launch.steps import build_train_step, build_train_step_spmd
 from repro_torch.models.perf_flags import baseline_mode
 from repro_torch.models.model import init_params
@@ -79,11 +78,8 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     (``launch.sharding.param_specs``).  Every rank of a world calls this
     alike; only rank 0 prints and writes checkpoints."""
     device = resolve_device(device)
-    if world_size() == 1 and model_parallel > 1:
-        raise ValueError(
-            f"model_parallel={model_parallel} shards over the ranks of a "
-            f"torch.distributed world, and this process is a world of one "
-            f"rank; start the ranks with python -m torch.distributed.run")
+    # a world of one rank clamps model_parallel to 1, as the reference's
+    # make_elastic_mesh clamps to the live devices
     mesh = make_elastic_mesh(model_parallel, device.type)
     sharded = mesh.size > 1
     rank0 = mesh.rank == 0

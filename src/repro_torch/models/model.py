@@ -113,6 +113,19 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return shapes
 
 
+def param_structs(cfg: ModelConfig) -> Dict:
+    """The params as meta tensors (shape and dtype, no storage): the
+    reference's ``ShapeDtypeStruct`` tree, the dry run's allocation-free
+    inputs."""
+    return _meta_tree(param_shapes(cfg), DTYPES[cfg.param_dtype])
+
+
+def _meta_tree(shapes: Dict, dt: torch.dtype) -> Dict:
+    return {k: (torch.empty(v, dtype=dt, device="meta")
+                if isinstance(v, tuple) else _meta_tree(v, dt))
+            for k, v in shapes.items()}
+
+
 def _set(tree: Dict, path: Tuple[str, ...], leaf) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
@@ -406,6 +419,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
+def cache_structs(cfg: ModelConfig, batch: int, max_len: int,
+                  page_len: int = 0,
+                  pool_pages: Optional[Dict[str, int]] = None) -> Dict:
+    """``init_cache``'s tree as meta tensors (no storage): the reference's
+    ``cache_structs``, bf16 KV (the compute type) and float32 recurrent
+    state."""
+    return init_cache(cfg, batch, max_len, device="meta",
+                      page_len=page_len, pool_pages=pool_pages)
+
+
 def _decode_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
                  blk: BlockCfg, pos: torch.Tensor,
                  packed: Optional[Dict] = None,
@@ -664,13 +687,11 @@ def head_logits(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
     """LM head over (B, D) hidden states -> (B, V) float32 logits.
 
     ``lm_weight`` (a ``BitmapWeight``) puts the head product on the
-    bitmap-compressed ``kernels/ops.bitmap_spmm`` path; a dense (D, V)
-    tensor is multiplied as it is (the engine's quarantined head, pruned
-    as it was packed); None takes the params' head."""
-    if lm_weight is None or isinstance(lm_weight, torch.Tensor):
-        w = (lm_head_weight(params, cfg) if lm_weight is None
-             else lm_weight).to(hidden.dtype)
-        logits = (hidden @ w).float()
+    bitmap-compressed ``kernels/ops.bitmap_spmm`` path; None takes the
+    params' head."""
+    if lm_weight is None:
+        logits = (hidden @ lm_head_weight(params, cfg).to(hidden.dtype)
+                  ).float()
     else:
         from repro_torch.kernels import ops
         logits = ops.bitmap_spmm(hidden, lm_weight, impl=lm_impl).float()

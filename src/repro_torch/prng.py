@@ -13,19 +13,28 @@ Threefry-2x32 block cipher with 20 rounds) with
 * ``fold_in(k, d)`` is threefry(k, (0, d));
 * ``random_bits(k, n)`` hashes the counters (0, i), i < n, and keeps
   out0 ^ out1;
-* ``normal``: the bits' top 23 become a float in [1, 2), less 1, scaled
-  to [nextafter(-1, 0), 1); the normal is sqrt(2)·erfinv(u), erfinv by
-  XLA's float32 polynomial (Giles, "Approximating the erfinv function").
+* ``uniform(minval, maxval)``: the bits' top 23 become a float f in
+  [1, 2), less 1, then ``max(minval, f·(maxval - minval) + minval)`` in
+  float32;
+* ``normal``: sqrt(2)·erfinv(u), u uniform in [nextafter(-1, 0), 1),
+  erfinv by XLA's float32 polynomial (Giles, "Approximating the erfinv
+  function");
+* ``gumbel``: the default (low-range) form, ``-log(-log(u))`` with u
+  uniform in [tiny, 1); ``categorical``: ``argmax(gumbel + logits)``.
 
 A key is a pair of Python ints, so ``prng_key`` and ``fold_in`` hash
 their two words on the host and launch nothing.  The bits and the
 normals are computed on int64 tensors masked to 32 bits on the device
 asked for, every constant a Python scalar, so a draw on the card makes
-no round trip to the host.
+no round trip to the host.  The batched forms (``fold_in_rows``,
+``categorical_rows``) take a (B, 2) int64 key tensor on the device, one
+key per row, as ``jax.vmap`` over keys draws: the key words broadcast
+against the counters, so B rows of V draws are one set of launches.
 """
 from __future__ import annotations
 
 import math
+import struct
 from typing import Sequence, Tuple
 
 import torch
@@ -33,10 +42,10 @@ import torch
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
-# the uniform's low end, float32 nextafter(-1, 0), and its scale, 1 - lo
-# rounded to float32 as ``jax.random`` computes it: 2
+# the normal's uniform low end, float32 nextafter(-1, 0), and the
+# smallest normal float32, the Gumbel's uniform low end
 _LO = -(1.0 - 2.0 ** -24)
-_SCALE = 2.0
+_TINY = 2.0 ** -126
 
 Key = Tuple[int, int]
 
@@ -101,17 +110,89 @@ def _erfinv32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def uniform(key: Key, shape: Sequence[int],
-            device: torch.device | str | None = None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, nextafter(-1, 0), 1)``,
-    the range ``jax.random.normal`` draws from."""
-    bits = (random_bits(key, math.prod(shape), device) >> 9) | 0x3F800000
+def _f32(x: float) -> float:
+    """``x`` rounded to the nearest float32."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def _uniform_bits(bits: torch.Tensor, minval: float,
+                  maxval: float) -> torch.Tensor:
+    """``jax.random.uniform``'s float32 map of 32-bit draws: the top 23
+    bits as f in [1, 2), less 1, then max(minval, f·(maxval - minval) +
+    minval) with minval, maxval and their difference rounded to float32.
+    XLA contracts the multiply-add into one rounding (a fused
+    multiply-add), so it is computed here in float64, where the product
+    of two float32 values is exact, and rounded to float32 once."""
+    lo = _f32(minval)
+    scale = _f32(_f32(maxval) - lo)
     # int64 -> int32 keeps the low 32 bits; then reinterpret as float32
-    f = bits.to(torch.int32).view(torch.float32) - 1.0
-    return (f * _SCALE + _LO).clamp_min(_LO).reshape(tuple(shape))
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return (f.double() * scale + lo).float().clamp_min(lo)
+
+
+def uniform(key: Key, shape: Sequence[int],
+            device: torch.device | str | None = None,
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    bits = random_bits(key, math.prod(shape), device)
+    return _uniform_bits(bits, minval, maxval).reshape(tuple(shape))
 
 
 def normal(key: Key, shape: Sequence[int],
            device: torch.device | str | None = None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` drawn on ``device``."""
-    return math.sqrt(2.0) * _erfinv32(uniform(key, shape, device))
+    return math.sqrt(2.0) * _erfinv32(uniform(key, shape, device,
+                                              minval=_LO))
+
+
+def _gumbel_of(u: torch.Tensor) -> torch.Tensor:
+    return -torch.log(-torch.log(u))
+
+
+def gumbel(key: Key, shape: Sequence[int],
+           device: torch.device | str | None = None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)``, the default low-range
+    form: -log(-log(u)), u uniform in [tiny, 1)."""
+    return _gumbel_of(uniform(key, shape, device, minval=_TINY))
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis of
+    float32 ``logits``: argmax(gumbel + logits), the first index of a
+    tie."""
+    g = gumbel(key, tuple(logits.shape), logits.device)
+    return (g + logits).argmax(-1)
+
+
+# --------------------------------------------------------------- batched ----
+
+
+def fold_in_rows(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(jax.random.fold_in)(keys, data)`` on the device: row b
+    of the (B, 2) ``keys`` folded with ``data[b]``."""
+    k0, k1 = keys[:, 0], keys[:, 1]
+    out0, out1 = threefry2x32((k0, k1), torch.zeros_like(k0),
+                              data.to(torch.int64) & _MASK)
+    return torch.stack((out0, out1), dim=1)
+
+
+def random_bits_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) draws, row b ``random_bits(keys[b], n)``, in one pass: the
+    key words (B, 1) broadcast against the counters (1, n)."""
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)[None]
+    out0, out1 = threefry2x32((keys[:, :1], keys[:, 1:]),
+                              torch.zeros_like(i), i)
+    return out0 ^ out1
+
+
+def gumbel_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) float32 Gumbel draws, row b ``gumbel(keys[b], (n,))``."""
+    return _gumbel_of(_uniform_bits(random_bits_rows(keys, n), _TINY, 1.0))
+
+
+def categorical_rows(keys: torch.Tensor, logits: torch.Tensor
+                     ) -> torch.Tensor:
+    """``jax.vmap(jax.random.categorical)(keys, logits)``: row b of the
+    (B, V) float32 ``logits`` sampled under ``keys[b]``, on the device
+    with no read back to the host."""
+    return (gumbel_rows(keys, logits.shape[-1]) + logits).argmax(-1)

@@ -51,10 +51,15 @@ re-admission after preemption or quarantine included.  The frames
 frontend (musicgen) feeds each decode step embeddings drawn on the
 device from the reference's key, ``PRNGKey(seed + 0x5eed)`` folded with
 the step counter, replayed without JAX by ``repro_torch.prng``; so it
-serves the reference's tokens.  Baseline mode (``REPRO_PERF_MODE``,
+serves the reference's tokens.  Sampled requests (T > 0) draw the
+reference's ``jax.random.categorical`` from its per-request key,
+``PRNGKey(seed)`` folded with the slot's position, replayed on the
+device by the same module; so they serve the reference's tokens too.
+Baseline mode (``REPRO_PERF_MODE``,
 ``models/perf_flags.py``) is read once, when the engine is built, and
 its steps take the global MoE dispatch.  The traffic ledger's
-compiled-HLO cross-check is not ported (the port has no HLO).
+cross-check counts the engine's own steps on meta tensors
+(``serve/traffic.py``, ``launch/counters.py``).
 
 **Sharded serving.**  In a ``torch.distributed`` world of more than one
 rank, every rank builds the same engine and runs the same host loop (the
@@ -78,13 +83,13 @@ the reference's reasons.  Decisions taken on the wall clock (deadlines,
 TTFT shedding) read one clock for the world: rank 0's, broadcast once
 per step (``Mesh.from_root``), so every rank expires and sheds alike;
 every time stamp of a step is that reading.  A world of one rank serves
-exactly as before; asking it for ``model_parallel`` or ``kv_shards`` > 1
-raises.
+exactly as before: asked for ``model_parallel`` > 1 it builds the
+clamped (1, 1) mesh, as the reference's ``make_elastic_mesh`` does on one
+device, and ``kv_shards`` > 1 is ignored there, as the reference ignores
+it off a sharded mesh.
 
-One deliberate difference from the reference: a quarantined LM head is
-served dense *as it was pruned before packing* (``head_sparsity``), not
-from the unpruned params head, so a recovered stream computes what the
-never-faulted one did.
+A quarantined LM head is served dense from the params' head as it stands
+(the reference's ``lm_weight = None``).
 """
 from __future__ import annotations
 
@@ -100,11 +105,10 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_elastic_mesh, world_size
-from repro_torch.launch.sharding import (gather_leaf, keep_local,
-                                         keep_local_tree, param_specs,
-                                         resident_bytes, shard_tree,
-                                         sharded_on)
+from repro_torch.launch.mesh import make_elastic_mesh
+from repro_torch.launch.sharding import (keep_local, keep_local_tree,
+                                         param_specs, resident_bytes,
+                                         shard_tree, sharded_on)
 from repro_torch.launch.steps import (build_prefill_step,
                                       build_prefill_step_spmd,
                                       build_serve_step,
@@ -281,8 +285,8 @@ class ServeEngine:
         pools over its data axis (``kv_shards`` None: the data extent;
         a count that is not the data extent or does not divide
         ``num_slots`` keeps the pools replicated, with a typed reason).
-        Either above 1 in a world of one rank raises.  Every rank must
-        make the same engine and drive it with the same calls.
+        A world of one rank clamps them to 1.  Every rank must make the
+        same engine and drive it with the same calls.
 
         ``history``: retired requests kept for inspection.
 
@@ -312,13 +316,6 @@ class ServeEngine:
         traffic ledger's artifact (``serve/traffic.py``).
         """
         self.device = resolve_device(device)
-        if world_size() == 1 and (model_parallel > 1
-                                  or (kv_shards or 1) > 1):
-            raise ValueError(
-                f"model_parallel={model_parallel} / kv_shards={kv_shards} "
-                f"shard over the ranks of a torch.distributed world, and "
-                f"this process is a world of one rank; start the ranks "
-                f"with python -m torch.distributed.run (launch/serve.py)")
         self.mesh = make_elastic_mesh(model_parallel, self.device.type)
         self._spmd = self.mesh.size > 1
         self.model_parallel = self.mesh.model
@@ -411,8 +408,6 @@ class ServeEngine:
             self.fallbacks["head"] = self.head_fallback
         self.head_compression = (self.lm_weight.compression
                                  if self.lm_weight is not None else 1.0)
-        # the dense head a quarantined packed head is served from
-        self._head_dense: Optional[torch.Tensor] = None
         # sharded: the dense params by the reference's specs, this rank's
         # parts kept (pruned and packed whole above, for the global
         # threshold and the packs)
@@ -506,7 +501,8 @@ class ServeEngine:
         self._pos = np.zeros(num_slots, np.int64)
         self._temp = np.zeros(num_slots, np.float32)
         self._topk = np.zeros(num_slots, np.int32)
-        self._seeds = np.zeros(num_slots, np.int64)
+        # each slot's sampling key, ``prng_key`` of its request's seed
+        self._keys = np.zeros((num_slots, 2), np.int64)
         self._use_sampling = False
         self._use_topk_vec = False
         self._seed = seed
@@ -613,7 +609,7 @@ class ServeEngine:
         the params.  Empty on one rank."""
         if not self._spmd:
             return frozenset()
-        head = self.lm_weight is None and self._head_dense is None
+        head = self.lm_weight is None
         out = set()
         for path, _ in tree_items(self.params):
             if not sharded_on(self.param_specs[path], "model", self.mesh):
@@ -1006,11 +1002,11 @@ class ServeEngine:
         Each corrupted tensor is quarantined: a stack leaf becomes None
         (``matmul_or_bitmap`` multiplies by the dense params tensor,
         which global pruning already left equal to the pack), the head
-        is served from the params' head pruned as it was packed; the
-        reason lands in the manifest.  Then the prefix cache is flushed
-        (its pages may hold KV lines written through the corrupt path)
-        and every active slot is preempted, so all in-flight requests
-        replay through the clean path.  Non-finite logits with no
+        is served from the params' head as it stands, as the reference
+        serves it; the reason lands in the manifest.  Then the prefix
+        cache is flushed (its pages may hold KV lines written through the
+        corrupt path) and every active slot is preempted, so all
+        in-flight requests replay through the clean path.  Non-finite logits with no
         corrupted tensor to blame raise ``AuditViolation``: that is a
         bug, not a recoverable fault."""
         bad = self.auditor.integrity_scan()
@@ -1024,9 +1020,6 @@ class ServeEngine:
                       "(served dense from pristine params)")
             if path == "lm_head":
                 self.lm_weight = None
-                self._head_dense = per_tensor_prune(
-                    lm_head_weight(self._whole_head_source(), self.cfg),
-                    self.head_sparsity)
                 self.head_fallback = reason
                 self.head_compression = 1.0
                 self._warn_fallback(
@@ -1053,28 +1046,22 @@ class ServeEngine:
             self._preempt_slot(slot)
         return True
 
-    def _whole_head_source(self) -> Dict:
-        """The params leaf the dense head is read from, whole (gathered
-        over the model axis in a sharded world: every rank quarantines
-        alike, so every rank joins the gather)."""
-        key = "embed" if self.cfg.tie_embeddings else "lm_head"
-        leaf = self.params[key]
-        if self._spmd:
-            leaf = gather_leaf(leaf, self.param_specs[(key,)], self.mesh)
-        return {key: leaf}
-
-    def _decode(self):
+    def decode_args(self):
+        """(args, kwargs) of the next decode step's call, assembled from
+        the engine's host state (the traffic ledger's cross-check counts
+        the step on meta copies of them)."""
         tok = torch.from_numpy(self._tok[:, None]).to(self.device)
         pos = torch.from_numpy(self._pos).to(self.device)
         packed = self.packed.blocks if self.packed is not None else None
-        kw = dict(lm_weight=(self.lm_weight if self.lm_weight is not None
-                             else self._head_dense), packed=packed)
+        kw = dict(lm_weight=self.lm_weight, packed=packed)
         if self.page_len:
             kw["page_tables"] = self.kv.tables()
         if self._use_sampling:
-            kw.update(seeds=self._seeds, temperature=self._temp)
+            kw.update(sample_keys=torch.from_numpy(self._keys).to(
+                self.device), temperature=torch.from_numpy(
+                    self._temp).to(self.device))
             if self._use_topk_vec:
-                kw["top_ks"] = self._topk
+                kw["top_ks"] = torch.from_numpy(self._topk).to(self.device)
         if self._spmd:
             kw["dense"] = self.dense_gather
         if self.cfg.frontend == "frames":
@@ -1082,20 +1069,31 @@ class ServeEngine:
             # the step counter; no token is looked up
             kw["embed_key"] = fold_in(self._embed_key, self._steps)
             tok = None
-        return self._step_fn(self.params, self.kv.cache, tok, pos, **kw)
+        return (self.params, self.kv.cache, tok, pos), kw
+
+    def _decode(self):
+        args, kw = self.decode_args()
+        return self._step_fn(*args, **kw)
+
+    def prefill_args(self, tokens: np.ndarray, pos: np.ndarray,
+                     lens: np.ndarray):
+        """(args, kwargs) of a chunked-prefill call over the fixed
+        (num_slots, C) batch."""
+        packed = self.packed.blocks if self.packed is not None else None
+        kw = {"dense": self.dense_gather} if self._spmd else {}
+        return ((self.params, self.kv.cache,
+                 torch.from_numpy(tokens).to(self.device, torch.int64),
+                 torch.from_numpy(pos).to(self.device, torch.int64),
+                 torch.from_numpy(lens).to(self.device, torch.int64)),
+                dict(packed=packed,
+                     page_tables=self.kv.tables() if self.page_len else None,
+                     **kw))
 
     def _prefill(self, tokens: np.ndarray, pos: np.ndarray,
                  lens: np.ndarray):
         """One chunked-prefill call over the fixed (num_slots, C) batch."""
-        packed = self.packed.blocks if self.packed is not None else None
-        kw = {"dense": self.dense_gather} if self._spmd else {}
-        return self._prefill_fn(
-            self.params, self.kv.cache,
-            torch.from_numpy(tokens).to(self.device, torch.int64),
-            torch.from_numpy(pos).to(self.device, torch.int64),
-            torch.from_numpy(lens).to(self.device, torch.int64),
-            packed=packed,
-            page_tables=self.kv.tables() if self.page_len else None, **kw)
+        args, kw = self.prefill_args(tokens, pos, lens)
+        return self._prefill_fn(*args, **kw)
 
     def _prefill_call(self) -> None:
         """Run the planner's next batched chunk call and route results:
@@ -1258,8 +1256,9 @@ class ServeEngine:
             self._temp[slot] = req.temperature
             self._topk[slot] = (req.top_k if req.top_k is not None
                                 else self.top_k_default)
-            self._seeds[slot] = (req.seed if req.seed is not None
-                                 else self._seed + 0x9e37 * (req.rid + 1))
+            rseed = (req.seed if req.seed is not None
+                     else self._seed + 0x9e37 * (req.rid + 1))
+            self._keys[slot] = prng_key(rseed)
             req.admit_step = self._steps
             if req.t_due is None:
                 req.t_due = self._wall()

@@ -14,10 +14,15 @@ Port of ``repro/serve/traffic.py``:
   ``hbm.prefill``).
 
 * **Cross-check** — the reference lowers its jitted steps and counts
-  the compiled HLO's bytes.  The port runs eager torch and has no HLO
-  to read, so ``crosscheck()`` records the dispatch and the reason in
-  place of the compiled counts (``modeled_executed`` still gives the
-  bytes the chosen dispatch should fetch).
+  the compiled HLO's bytes.  The port's steps are eager torch, so
+  ``crosscheck()`` puts meta copies of the engine's params, packs and
+  cache through the engine's own decode (and prefill) step under
+  ``launch/counters.OpCounter``, which counts every dispatched op and
+  every kernel entry point as the reference's analyzer counts HLO:
+  nothing is allocated or run, and the live cache is never touched.
+  The counts are recorded under the reference's ``compiled_*`` keys
+  ("compiled" means "counted" here) and held to ``modeled_executed``
+  within the reference's bands.
 
 * **Energy + roofline projection** — the ledger projects through the
   port's copy of ``core/energy.energy_dataflow`` into pJ/token and
@@ -34,9 +39,11 @@ from __future__ import annotations
 import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.energy import NUM_MACS, energy_dataflow, tops_per_watt
+from repro_torch.launch.counters import OpCounter, to_meta
 from repro_torch.launch.roofline import roofline
 from repro_torch.models.model import attn_capacity
 from repro_torch.serve.packed import (ROUTED_EXPERT, activated_scale,
@@ -51,10 +58,6 @@ __all__ = ["TrafficLedger", "role_of", "TRAFFIC_PHASES", "TRAFFIC_KINDS",
 TRAFFIC_PHASES = ("decode", "prefill")
 TRAFFIC_KINDS = ("weight", "kv_read", "kv_write")
 
-#: why ``crosscheck()`` has no compiled counts in the port
-NO_HLO = ("no compiled HLO to count: the port's steps run eager torch "
-          "(the reference lowers its jitted steps through XLA)")
-
 _F32 = 4          # bytes per float32 element: params and the dense head
 
 _ATTN_ROLES = {"wq": "attn.wq", "wk": "attn.wk", "wv": "attn.wv",
@@ -62,8 +65,7 @@ _ATTN_ROLES = {"wq": "attn.wq", "wk": "attn.wk", "wv": "attn.wv",
 _SSM_COMPS = {"mamba", "rwkv", "rwkv_cm"}
 
 #: the reference's per-phase compiled-vs-modeled bytes ratio bands
-#: (``modeled_executed`` is a fetch floor, so the lower bound is 1.0).
-#: The port has no compiled program to hold to them yet.
+#: (``modeled_executed`` is a fetch floor, so the lower bound is 1.0)
 CROSSCHECK_BANDS = {"decode": (1.0, 8.0), "prefill": (1.0, 24.0)}
 
 
@@ -374,19 +376,94 @@ class TrafficLedger:
                 "kv_bytes": int(kv),
                 "total_bytes": int(weights + head + kv)}
 
-    def crosscheck(self) -> Dict:
-        """The reference compiles the decode (and prefill) step and
-        compares the HLO's counted bytes with ``modeled_executed``.  The
-        port's steps are eager torch with no compiled program to count,
-        so this records the dispatch, the reason and the modeled side
-        per phase, and never raises.  The result is cached into
-        ``report()["traffic"]["crosscheck"]`` and the ``traffic_out``
-        artifact."""
+    def step_call(self, phase: str, meta: bool = True):
+        """(step function, args, kwargs) of one call of the engine's own
+        ``phase`` step, assembled as ``ServeEngine._decode`` /
+        ``_prefill`` assemble it (a prefill call over zero tokens, as the
+        reference lowers it).  ``meta``: every tensor a meta copy, so the
+        call allocates and runs nothing; else the tensors themselves, the
+        cache cloned so that a run leaves the live one as it was.
+
+        A sharded engine's call is its base (one-rank) step on the whole
+        weights and pools, the step its ranks run after their gathers:
+        meta tensors of the whole shapes (a packed part's entry point
+        charges the whole weight), with ``meta`` only."""
         eng = self.eng
-        out: Dict = {"dispatch": self._dispatch(), "reason": NO_HLO}
+        if phase == "prefill":
+            z = np.zeros((eng.num_slots, eng.prefill_chunk), np.int64)
+            zl = np.zeros(eng.num_slots, np.int64)
+            args, kw = eng.prefill_args(z, zl, zl)
+            fn = eng._prefill_fn
+        else:
+            args, kw = eng.decode_args()
+            fn = eng._step_fn
+        if not meta:
+            cache = {b: {k: t.clone() for k, t in leafd.items()}
+                     for b, leafd in args[1].items()}
+            return fn, (args[0], cache) + tuple(args[2:]), kw
+        args, kw = to_meta(args), to_meta(kw)
+        if eng._spmd:
+            fn, args, kw = self._whole_call(phase, args, kw)
+        return fn, args, kw
+
+    def _whole_call(self, phase: str, args, kw):
+        """A sharded engine's meta call as its base step's on whole
+        shapes."""
+        eng = self.eng
+        from repro_torch.launch.steps import (build_prefill_step,
+                                              build_serve_step)
+        from repro_torch.sparse.pruning import tree_map
+        params = tree_map(lambda p, t: torch.empty(
+            eng.dense_shapes[p], dtype=t.dtype, device="meta"), args[0])
+        pools = set(eng._kv_data_pools)
+        cache = {b: {k: (torch.empty((t.shape[0], t.shape[1] * eng.mesh.data,
+                                      *t.shape[2:]), dtype=t.dtype,
+                                     device="meta")
+                         if b in pools and k in ("k", "v") else t)
+                     for k, t in leafd.items()}
+                 for b, leafd in args[1].items()}
+        kw = {k: v for k, v in kw.items() if k != "dense"}
+        fn = (build_prefill_step(eng.cfg, baseline=eng.baseline)
+              if phase == "prefill" else
+              build_serve_step(eng.cfg, top_k=eng.top_k_default,
+                               baseline=eng.baseline))
+        return fn, (params, cache) + tuple(args[2:]), kw
+
+    def count(self, phase: str, meta: bool = True) -> OpCounter:
+        """One call of the engine's ``phase`` step under a counter (see
+        ``step_call``): on meta tensors, or executed when ``meta`` is
+        False.  Meta calls are charged the engine's kernel dispatch."""
+        fn, args, kw = self.step_call(phase, meta)
+        dispatch = "cuda" if self._dispatch() == "cuda" else "torch"
+        with torch.no_grad(), OpCounter(dispatch) as counter:
+            fn(*args, **kw)
+        return counter
+
+    def crosscheck(self) -> Dict:
+        """Count the decode (and, when chunked prefill is on, the
+        prefill) step on meta tensors (``count``) and compare its bytes
+        with ``modeled_executed``: the modeled-vs-counted contract, under
+        the reference's keys and ``CROSSCHECK_BANDS`` ("compiled" in a
+        key means "counted" here: the port has no compiled program).
+        The result is cached into ``report()["traffic"]["crosscheck"]``
+        and the ``traffic_out`` artifact."""
+        eng = self.eng
+        out: Dict = {"dispatch": self._dispatch()}
         phases = ["decode"] + (["prefill"] if eng.prefill_chunk else [])
         for phase in phases:
-            out[phase] = {"modeled": self.modeled_executed(phase)}
+            lo, hi = CROSSCHECK_BANDS[phase]
+            counted = self.count(phase).result()
+            modeled = self.modeled_executed(phase)
+            ratio = (counted["bytes"] / modeled["total_bytes"]
+                     if modeled["total_bytes"] else float("nan"))
+            out[phase] = {
+                "compiled_bytes": int(counted["bytes"]),
+                "compiled_flops": float(counted["flops"]),
+                "modeled": modeled,
+                "ratio": float(ratio),
+                "tolerance": [float(lo), float(hi)],
+                "within_band": bool(lo <= ratio <= hi),
+            }
         self._crosscheck = out
         return out
 

@@ -276,6 +276,7 @@ def test_baseline_moments_follow_params_and_global_moe_takes_whole_batch(
 
     class Rank:
         data, model, data_rank = 2, 1, 1
+        batch, batch_rank = 2, 1           # the batch axes: data alone
         shape = {"data": 2, "model": 1}
         axis_names = ("data", "model")
 

@@ -141,6 +141,60 @@ def test_sampling_depends_only_on_seed_and_position():
     assert k1.tokens == g.tokens
 
 
+def _sampled_trace(vocab, per_request_top_k):
+    """Staggered arrivals, half greedy and half sampled at T 0.8 / 1.0;
+    with ``per_request_top_k`` the sampled requests name their own top-k
+    (0 or 3: the per-slot vector), else they take the engine's."""
+    rng = np.random.default_rng(5)
+    trace = []
+    for i in range(6):
+        spec = dict(prompt=[int(t) for t in rng.integers(1, vocab, 2 + i)],
+                    max_new_tokens=6, arrival=float(2 * (i // 2)))
+        if i % 2:
+            spec.update(temperature=(0.8, 1.0)[(i // 2) % 2], seed=40 + i)
+            if per_request_top_k:
+                spec["top_k"] = (0, 3)[(i // 2) % 2]
+        trace.append(spec)
+    return trace
+
+
+SAMPLED = [("olmo-1b", 0, True), ("olmo-1b", 5, False),
+           ("granite-moe-3b-a800m", 0, True)]
+
+
+@pytest.mark.parametrize("arch,top_k,per_request", SAMPLED,
+                         ids=["olmo-per-request", "olmo-engine-wide",
+                              "granite-per-request"])
+def test_sampled_tokens_equal_reference_engine(arch, top_k, per_request):
+    """Sampled requests (T > 0) draw the reference's
+    ``jax.random.categorical`` from ``PRNGKey(seed)`` folded with the
+    slot's position, replayed on the device by ``repro_torch.prng``: in
+    float32 every token, greedy and sampled, equals the reference
+    engine's (run outside its mesh), with per-request and engine-wide
+    top-k."""
+    cfg = dataclasses.replace(ref_smoke(arch), compute_dtype="float32")
+    pcfg = dataclasses.replace(pt_smoke(arch), compute_dtype="float32")
+    kw = dict(num_slots=3, max_len=32, sparsity=0.5, seed=0, top_k=top_k)
+    params = jax.tree.map(np.asarray,
+                          ref_init_params(jax.random.PRNGKey(0), cfg))
+    ref = RefEngine(cfg, **kw)
+    pt = PtEngine(pcfg, params=params_from_numpy(params, device="cpu"),
+                  device="cpu", **kw)
+    trace = _sampled_trace(cfg.vocab_size, per_request)
+    tokens = []
+    for eng in (ref, pt):
+        reqs = [eng.submit(**spec) for spec in trace]
+        eng.run()
+        tokens.append([[int(t) for t in r.tokens] for r in reqs])
+    assert tokens[1] == tokens[0]
+    assert pt._use_sampling and pt._use_topk_vec == per_request
+    greedy = [t for t, spec in zip(tokens[1], trace)
+              if not spec.get("temperature")]
+    sampled = [t for t, spec in zip(tokens[1], trace)
+               if spec.get("temperature")]
+    assert greedy and sampled and all(len(t) == 6 for t in tokens[1])
+
+
 def test_engine_rejects_and_counts():
     eng = PtEngine(pt_smoke("olmo-1b"), num_slots=2, max_len=16,
                    device="cpu")

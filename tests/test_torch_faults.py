@@ -199,16 +199,78 @@ def test_bitflip_quarantine_lands_in_manifest():
 
 
 def test_quarantined_head_is_served_as_packed():
-    """A quarantined head is served from the params' head pruned as it
-    was packed, so the dense product equals the packed one."""
+    """A quarantined head is served from the params' head as it stands,
+    as the reference serves it (``lm_weight = None``): the step's dense
+    head is ``lm_head_weight(params)``, not a re-pruned copy."""
+    from repro_torch.models.model import head_logits, lm_head_weight
     eng = _engine("pt", audit=True,
                   faults=FaultPlan(seed=1).nan_logits(step=2),
                   paged=True, page_len=8)
-    packed = eng.lm_weight
     _run(eng)
     assert eng.lm_weight is None and "lm_head" in eng.quarantined
-    torch.testing.assert_close(eng._head_dense, packed.dense_cache,
+    assert not hasattr(eng, "_head_dense")
+    h = torch.randn(3, eng.cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    torch.testing.assert_close(head_logits(eng.params, eng.cfg, h),
+                               h @ lm_head_weight(eng.params, eng.cfg),
                                rtol=0, atol=0)
+
+
+def _flip_head_bit(eng, field: str, bit: int) -> None:
+    """Flip one bit of the packed LM head's values or bitmap (either
+    engine's: a host copy, back into the engine's array type)."""
+    bw = eng.lm_weight
+    name = "values" if field == "values" else "packed_bits"
+    arr = getattr(bw, name)
+    host = np.array(arr).copy()
+    flat = host.view(np.uint8).reshape(-1)
+    flat[bit // 8 % flat.size] ^= np.uint8(1 << (bit % 8))
+    new = (torch.from_numpy(host) if isinstance(arr, torch.Tensor)
+           else jax.numpy.asarray(host))
+    eng.lm_weight = dataclasses.replace(bw, **{name: new})
+
+
+@pytest.mark.parametrize("field", ["values", "bitmap"])
+def test_head_bitflip_serves_reference_tokens(field):
+    """A bit of the packed LM head flipped at a seeded step (the same
+    bit in both engines): the auditor quarantines ``lm_head``, every
+    in-flight request replays through the params' head, and the tokens
+    equal the reference engine's (sampled requests included), and so do
+    the logits of every step after the quarantine (the params' head, not
+    a re-pruned one)."""
+    bit = int(np.random.default_rng(5).integers(1 << 16))
+    toks, quarantined, logits = {}, {}, {}
+    for side in ("ref", "pt"):
+        eng = _engine(side, audit=True, paged=True, page_len=8)
+        reqs = [eng.submit(p, 6, arrival=float(i),
+                           temperature=(0.9 if i % 2 else 0.0),
+                           seed=70 + i)
+                for i, p in enumerate(PROMPTS)]
+        logits[side] = rows = []
+        decode = eng._decode
+
+        def recording(*args, decode=decode, eng=eng, rows=rows):
+            out = decode(*args)
+            if "lm_head" in eng.quarantined:
+                rows.append(np.array(out[1], np.float32))
+            return out
+
+        eng._decode = recording
+        eng.warmup()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            while eng.scheduler.has_work:
+                if eng._steps == 3 and "lm_head" not in eng.quarantined:
+                    _flip_head_bit(eng, field, bit)
+                eng.step()
+        toks[side] = [[int(t) for t in r.tokens] for r in reqs]
+        quarantined[side] = dict(eng.quarantined)
+    assert list(quarantined["pt"]) == ["lm_head"]
+    assert quarantined["pt"] == quarantined["ref"]
+    assert toks["pt"] == toks["ref"]
+    assert len(logits["pt"]) == len(logits["ref"]) > 0
+    for got, want in zip(logits["pt"], logits["ref"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("sparsity", [0.0, 0.75])

@@ -201,6 +201,31 @@ def test_preempted_sampled_request_recomputes_identical_tokens():
     pinned.kv.audit()
 
 
+@pytest.mark.parametrize("arch,chunk", [("olmo-1b", 4),
+                                        ("granite-moe-3b-a800m", 0)])
+def test_sampled_paged_engine_equals_reference(arch, chunk):
+    """Sampled requests (T 0.8 / 1.0, per-request top-k 0 and 3, the
+    rest at the engine's top-k 4) with staggered arrivals on the paged
+    engine: every token equals the reference paged engine's, the
+    sampled draws replayed from the reference's keys."""
+    ref, pt = _engines(arch, chunk, 0.5, num_slots=3, top_k=4, paged=True,
+                       page_len=PAGE_LEN[arch])
+    trace = []
+    for i in range(6):
+        spec = dict(prompt=[(7 * i + j) % 250 + 1 for j in range(3 + i)],
+                    max_new_tokens=6, arrival=float(i))
+        if i % 3:
+            spec.update(temperature=(0.8, 1.0)[i % 2], seed=60 + i)
+            if i > 2:
+                spec["top_k"] = (0, 3)[i % 2]
+        trace.append(spec)
+    ref_reqs, ref_tables, _ = _drive(ref, trace)
+    pt_reqs, pt_tables, _ = _drive(pt, trace)
+    assert [list(r.tokens) for r in pt_reqs] == \
+        [[int(t) for t in r.tokens] for r in ref_reqs]
+    assert len(pt_tables) == len(ref_tables)
+
+
 # --------------------------------------------------------- fallbacks ----
 
 

@@ -243,8 +243,11 @@ def test_sharded_serving_matches_single_rank(runs, name):
     one = runs["single"][name]
     assert one["mesh"] == {"data": 1, "model": 1} and one["shards"] == 1
     if name in runs["ref"]:
+        # every request, sampled ones included: the port replays the
+        # reference's sampling keys
         ref = runs["ref"][name]
-        for i in one["greedy"]:
+        assert one["greedy"]
+        for i in range(len(one["tokens"])):
             assert one["tokens"][str(i)] == ref[str(i)], (name, i)
     for rank, res in enumerate(runs["ranks"]):
         for mp in sc["mps"]:
@@ -399,11 +402,42 @@ def test_gather_bitmap_is_unshard_across_ranks(runs):
 
 
 def test_world_of_one_refuses_to_shard():
+    """A world of one rank asked for ``model_parallel`` 2 (or paged
+    ``kv_shards`` 2) builds the clamped (1, 1) mesh, as the reference's
+    ``make_elastic_mesh`` does on one device, and serves the unsharded
+    engine's tokens, sampled ones included."""
     from repro_torch.serve import ServeEngine
     cfg = worker.smoke_config("olmo-1b")
-    for kw in (dict(model_parallel=2), dict(paged=True, kv_shards=2)):
-        with pytest.raises(ValueError, match="torch.distributed"):
-            ServeEngine(cfg, device="cpu", **kw)
+
+    def tokens(**kw):
+        eng = ServeEngine(cfg, device="cpu", num_slots=2, max_len=32,
+                          sparsity=0.5, seed=0, **kw)
+        for i, p in enumerate(worker.prompts(cfg)[:3]):
+            eng.submit(p, max_new_tokens=4, arrival=float(i),
+                       temperature=(0.8 if i % 2 else 0.0), seed=100 + i)
+        eng.run()
+        assert eng.mesh.size == 1 and eng.model_parallel == 1
+        assert eng.packed.shards == 1
+        return [list(r.tokens) for r in eng.requests]
+
+    assert tokens(model_parallel=2) == tokens()
+    paged = dict(paged=True, page_len=8)
+    assert tokens(kv_shards=2, **paged) == tokens(**paged)
+    # what the reference's engine does on one device: the same clamp,
+    # the pools unsharded, no fallback recorded
+    rcfg = _ref_config("olmo-1b")
+    for kw in (dict(model_parallel=2), dict(kv_shards=2, **paged)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ref = RefEngine(rcfg, num_slots=2, max_len=32, **kw)
+            pt = ServeEngine(cfg, device="cpu", num_slots=2, max_len=32,
+                             **kw)
+        assert ref.model_parallel == pt.model_parallel == 1
+        assert dict(ref.mesh.shape) == pt.mesh.shape
+        assert ref.kv_shard_fallback is pt.kv_shard_fallback is None
+        assert ref.fallbacks == pt.fallbacks
+        if kw.get("paged"):
+            assert ref.kv.shards == pt.kv.shards == 1
 
 
 def test_cli_serves_sharded_under_torchrun(tmp_path):
@@ -425,10 +459,10 @@ def test_cli_serves_sharded_under_torchrun(tmp_path):
     assert json.loads((tmp_path / "metrics.json").read_text())
 
 
-def test_nccl_with_more_ranks_than_cards_names_gloo(monkeypatch):
+def test_nccl_with_more_ranks_than_cards_names_gloo(monkeypatch, capsys):
     """``init_world`` never switches backend or device by itself: NCCL
     on a host with fewer cards than ranks raises and names gloo; the CLI
-    in a world of one rank refuses to shard rather than serve alone."""
+    in a world of one rank serves alone on the clamped mesh."""
     from repro_torch.launch import serve as cli
     from repro_torch.launch.mesh import init_world
     monkeypatch.setenv("RANK", "1")
@@ -439,6 +473,6 @@ def test_nccl_with_more_ranks_than_cards_names_gloo(monkeypatch):
     with pytest.raises(ValueError, match="backend"):
         init_world("mpi", "cpu")
     monkeypatch.setenv("WORLD_SIZE", "1")
-    with pytest.raises(ValueError, match="torch.distributed"):
-        cli.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu",
-                  "--model-parallel", "2"])
+    cli.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu",
+              "--model-parallel", "2", "--requests", "2"])
+    assert "2 requests / " in capsys.readouterr().out

@@ -26,7 +26,7 @@ from repro_torch.launch.roofline import (BF16_FLOPS_PER_S, HBM_BYTES_PER_S,
                                          roofline)
 from repro_torch.serve import ServeEngine as PtEngine
 from repro_torch.serve import load_trace, poisson_trace, role_of
-from repro_torch.serve.traffic import (NO_HLO, TRAFFIC_KINDS,
+from repro_torch.serve.traffic import (CROSSCHECK_BANDS, TRAFFIC_KINDS,
                                        TRAFFIC_PHASES)
 
 ARCHS = ["olmo-1b", "granite-moe-3b-a800m"]
@@ -180,8 +180,9 @@ def test_energy_projection_orders_sparse_below_dense():
 
 
 def test_crosscheck_records_reason_and_artifact_is_written(tmp_path):
-    """No compiled program to count: ``crosscheck()`` returns the
-    dispatch, the reason and the modeled side without raising, and the
+    """``crosscheck()`` counts the engine's own steps on meta tensors
+    and returns the dispatch and, per phase, the counted bytes and FLOPs
+    beside the modeled side under the reference's keys and bands; the
     artifact is written with the reference's schema; without
     ``traffic_out`` nothing is written and the tokens are the same."""
     _, off = _engines("olmo-1b", paged=True, page_len=8, prefill_chunk=8)
@@ -194,12 +195,19 @@ def test_crosscheck_records_reason_and_artifact_is_written(tmp_path):
     _, toks = _run(pt)
     assert toks == toks_off
     cc = pt.traffic.crosscheck()
-    assert cc["dispatch"] == "xla-oracle" and cc["reason"] == NO_HLO
-    assert set(cc) == {"dispatch", "reason", "decode", "prefill"}
-    assert cc["decode"]["modeled"] == pt.traffic.modeled_executed("decode")
+    assert cc["dispatch"] == "xla-oracle"
+    assert set(cc) == {"dispatch", "decode", "prefill"}
+    for phase in ("decode", "prefill"):
+        assert set(cc[phase]) == {"compiled_bytes", "compiled_flops",
+                                  "modeled", "ratio", "tolerance",
+                                  "within_band"}
+        assert cc[phase]["tolerance"] == list(CROSSCHECK_BANDS[phase])
+        assert cc[phase]["modeled"] == pt.traffic.modeled_executed(phase)
+        assert cc[phase]["within_band"]
     assert pt.close() == [str(out)] and pt.close() == []
     doc = json.loads(out.read_text())
     assert doc["schema"] == "repro.serve.traffic/v1"
     assert doc["arch"] == pt.cfg.name and doc["num_slots"] == 2
-    assert doc["traffic"]["crosscheck"]["reason"] == NO_HLO
+    assert doc["traffic"]["crosscheck"]["decode"]["compiled_bytes"] == \
+        cc["decode"]["compiled_bytes"]
     assert math.isfinite(doc["traffic"]["energy"]["pj_per_token"])

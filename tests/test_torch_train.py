@@ -470,6 +470,9 @@ def test_cli_runs_on_cpu_and_defaults_to_cuda(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaDevice):
         pt_train.main(["--arch", "olmo-1b", "--smoke", "--steps", "1"])
-    # a world of one rank refuses to shard rather than train alone
-    with pytest.raises(ValueError, match="torch.distributed"):
-        pt_train.train("olmo-1b", model_parallel=2, device="cpu")
+    # a world of one rank clamps model_parallel to 1, as the reference's
+    # make_elastic_mesh does on one device: the same steps as mp 1
+    kw = dict(steps=2, batch=2, seq=16, device="cpu")
+    two = pt_train.train("olmo-1b", model_parallel=2, **kw)
+    assert two["mesh"].size == 1
+    assert two["losses"] == pt_train.train("olmo-1b", **kw)["losses"]
