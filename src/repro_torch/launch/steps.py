@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.counting import span
 from repro_torch.launch.sharding import (batch_specs, bitmap_sharded,
                                          gather_leaf, opt_specs,
                                          param_specs, shard_leaf,
@@ -95,19 +96,21 @@ def build_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
     moe_global = baseline_mode(baseline)
 
     def train_step(params, opt_state, batch):
-        grads, metrics = accumulated_grads(params, batch, cfg, accum_steps,
-                                           moe_global)
-        if prune_masks is not None:
-            masks = dict(tree_items(prune_masks))
-            with torch.no_grad():                # the grads are this step's
-                for p, g in tree_items(grads):
-                    g.mul_(masks[p])
-        params, opt_state, opt_metrics = opt_lib.update(params, grads,
-                                                        opt_state, opt_cfg)
-        if prune_masks is not None:
-            with torch.no_grad():
-                for p, leaf in tree_items(params):
-                    leaf.mul_(masks[p])
+        with span("train.grads"):
+            grads, metrics = accumulated_grads(params, batch, cfg,
+                                               accum_steps, moe_global)
+        with span("train.update"):
+            if prune_masks is not None:
+                masks = dict(tree_items(prune_masks))
+                with torch.no_grad():            # the grads are this step's
+                    for p, g in tree_items(grads):
+                        g.mul_(masks[p])
+            params, opt_state, opt_metrics = opt_lib.update(
+                params, grads, opt_state, opt_cfg)
+            if prune_masks is not None:
+                with torch.no_grad():
+                    for p, leaf in tree_items(params):
+                        leaf.mul_(masks[p])
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
@@ -545,11 +548,13 @@ def build_train_step_spmd(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
         gather_s = time.perf_counter() - t0
         rows = _batch_rows(batch, cfg, mesh, baseline)
         if rows is None:
-            grads, metrics = accumulated_grads(full, batch, cfg, accum_steps,
-                                               baseline)
+            with span("train.grads"):
+                grads, metrics = accumulated_grads(full, batch, cfg,
+                                                   accum_steps, baseline)
         else:
-            grads, lsum = _split_grads(full, batch, cfg, rows, accum_steps,
-                                       baseline)
+            with span("train.grads"):
+                grads, lsum = _split_grads(full, batch, cfg, rows,
+                                           accum_steps, baseline)
             _sync(dev)
             t0 = time.perf_counter()
             group = mesh.group("batch")
@@ -566,7 +571,7 @@ def build_train_step_spmd(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
             metrics = {"loss": lsum / tokens.clamp_min(1), "tokens": tokens}
         del full
         flat_p = dict(tree_items(params))
-        with torch.no_grad():
+        with torch.no_grad(), span("train.update"):
             if masks is not None:
                 for p, g in tree_items(grads):
                     g.mul_(masks[p])

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.counting import span
 from repro_torch.models.config import ModelConfig
 
 
@@ -160,32 +161,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p % C, and ``window`` masks lines older than the window on its own,
     so the padded lines past the window are never attended.
     """
-    b, c, hkv, d = k_cache.shape
-    hq = q.shape[2]
-    g = hq // hkv
-    scale = d ** -0.5
-    qh = q[:, 0].reshape(b, hkv, g, d).to(k_cache.dtype)
-    s = torch.einsum("bkgd,bckd->bkgc", qh.float(), k_cache.float()) * scale
-    s = s.reshape(b, hq, c)
-    pc = pos.expand(b) if pos.dim() == 0 else pos
-    pc = pc.to(torch.int64)[:, None]
-    slots = torch.arange(c, device=q.device)[None, :]
-    if ring:
-        # slot i holds the latest position p <= pos with p % C == i;
-        # cold slots imply p < 0 and are masked out
-        base = pc - (pc % c)
-        slot_pos = torch.where(slots <= (pc % c), base + slots,
-                               base - c + slots)
-    else:
-        slot_pos = slots.expand(b, c)
-    valid = (slot_pos <= pc) & (slot_pos >= 0)
-    if window is not None:
-        valid &= (pc - slot_pos) < window
-    s = s.masked_fill(~valid[:, None, :], -1e30)
-    p = torch.softmax(s, dim=-1).reshape(b, hkv, g, c)
-    out = torch.einsum("bkgc,bckd->bkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.reshape(b, 1, hq, d).to(q.dtype)
+    with span("attn.decode"):
+        b, c, hkv, d = k_cache.shape
+        hq = q.shape[2]
+        g = hq // hkv
+        scale = d ** -0.5
+        qh = q[:, 0].reshape(b, hkv, g, d).to(k_cache.dtype)
+        s = torch.einsum("bkgd,bckd->bkgc", qh.float(),
+                         k_cache.float()) * scale
+        s = s.reshape(b, hq, c)
+        pc = pos.expand(b) if pos.dim() == 0 else pos
+        pc = pc.to(torch.int64)[:, None]
+        slots = torch.arange(c, device=q.device)[None, :]
+        if ring:
+            # slot i holds the latest position p <= pos with p % C == i;
+            # cold slots imply p < 0 and are masked out
+            base = pc - (pc % c)
+            slot_pos = torch.where(slots <= (pc % c), base + slots,
+                                   base - c + slots)
+        else:
+            slot_pos = slots.expand(b, c)
+        valid = (slot_pos <= pc) & (slot_pos >= 0)
+        if window is not None:
+            valid &= (pc - slot_pos) < window
+        s = s.masked_fill(~valid[:, None, :], -1e30)
+        p = torch.softmax(s, dim=-1).reshape(b, hkv, g, c)
+        out = torch.einsum("bkgc,bckd->bkgd", p.to(v_cache.dtype).float(),
+                           v_cache.float())
+        return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
 def slot_kv_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -346,45 +349,46 @@ def _moe_ffn_global(params: dict, x: torch.Tensor, cfg: ModelConfig,
 def _moe_rows(params: dict, x: torch.Tensor, cfg: ModelConfig,
               packed: Optional[dict], impl: Optional[str]) -> torch.Tensor:
     """The dispatch of ``moe_ffn``, each of x's rows on its own."""
-    pk = packed or {}
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.top_k
-    cap = int(s * k * cfg.capacity_factor / e) + 1
-    dev = x.device
+    with span("moe"):
+        pk = packed or {}
+        b, s, d = x.shape
+        e, k = cfg.num_experts, cfg.top_k
+        cap = int(s * k * cfg.capacity_factor / e) + 1
+        dev = x.device
 
-    logits = matmul_or_bitmap(x, params["router"], pk.get("router"), impl)
-    probs = torch.softmax(logits.float(), dim=-1)
-    gate, expert_idx = top_k_lower_index(probs, k)            # (B, S, k)
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        logits = matmul_or_bitmap(x, params["router"], pk.get("router"), impl)
+        probs = torch.softmax(logits.float(), dim=-1)
+        gate, expert_idx = top_k_lower_index(probs, k)            # (B, S, k)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    flat_e = expert_idx.reshape(b, s * k)
-    order = torch.argsort(flat_e, dim=-1, stable=True)         # (B, S*k)
-    sorted_e = torch.gather(flat_e, 1, order)
-    # rank within an expert = position - its first occurrence
-    first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    rank = torch.arange(s * k, device=dev)[None, :] - first
-    keep = rank < cap
-    slot = sorted_e * cap + torch.where(keep, rank, 0)         # (B, S*k)
-    src = order // k                                            # token id
+        flat_e = expert_idx.reshape(b, s * k)
+        order = torch.argsort(flat_e, dim=-1, stable=True)         # (B, S*k)
+        sorted_e = torch.gather(flat_e, 1, order)
+        # rank within an expert = position - its first occurrence
+        first = torch.searchsorted(sorted_e, sorted_e, side="left")
+        rank = torch.arange(s * k, device=dev)[None, :] - first
+        keep = rank < cap
+        slot = sorted_e * cap + torch.where(keep, rank, 0)         # (B, S*k)
+        src = order // k                                            # token id
 
-    rows = torch.arange(b, device=dev)[:, None].expand(b, s * k)
-    gathered = torch.gather(x, 1, src[..., None].expand(b, s * k, d))
-    # one real row per kept slot; dropped entries add zeros
-    buf = torch.zeros((b, e * cap, d), dtype=x.dtype, device=dev)
-    buf.index_put_((rows, slot),
-                   torch.where(keep[..., None], gathered,
-                               torch.zeros((), dtype=x.dtype, device=dev)),
-                   accumulate=True)
-    buf = buf.reshape(b, e, cap, d)
+        rows = torch.arange(b, device=dev)[:, None].expand(b, s * k)
+        gathered = torch.gather(x, 1, src[..., None].expand(b, s * k, d))
+        # one real row per kept slot; dropped entries add zeros
+        buf = torch.zeros((b, e * cap, d), dtype=x.dtype, device=dev)
+        buf.index_put_((rows, slot),
+                       torch.where(keep[..., None], gathered,
+                                   torch.zeros((), dtype=x.dtype, device=dev)),
+                       accumulate=True)
+        buf = buf.reshape(b, e, cap, d)
 
-    h = activation(expert_matmul_or_bitmap(buf, params["w_gate"],
-                                           pk.get("w_gate"), impl), cfg.act)
-    h = h * expert_matmul_or_bitmap(buf, params["w_up"], pk.get("w_up"),
-                                    impl)
-    y = expert_matmul_or_bitmap(h, params["w_down"], pk.get("w_down"),
-                                impl).reshape(b, e * cap, d)
+        h = activation(expert_matmul_or_bitmap(
+            buf, params["w_gate"], pk.get("w_gate"), impl), cfg.act)
+        h = h * expert_matmul_or_bitmap(buf, params["w_up"], pk.get("w_up"),
+                                        impl)
+        y = expert_matmul_or_bitmap(h, params["w_down"], pk.get("w_down"),
+                                    impl).reshape(b, e * cap, d)
 
-    return moe_combine(y, slot, keep, order, gate, expert_idx).to(x.dtype)
+        return moe_combine(y, slot, keep, order, gate, expert_idx).to(x.dtype)
 
 
 def moe_combine(y: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
