@@ -11,10 +11,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. Card and build: prints the card's name and power limit, then builds
    every CUDA source in ``src/repro_torch/kernels/csrc`` for ``sm_90a``
    (one ``nvcc`` per source, all at once, linked into one library with
-   five entry points: ``bitmap_spmm``, ``bitmap_spmm_grouped``,
-   ``flash_attention``, ``block_sparse`` and ``nm_spmm``; registers,
-   shared memory and spills from ptxas).  For each variant of K1 / K1g,
-   K2 (path x head dim x type) and K3 / K4 it prints its registers,
+   six entry points: ``bitmap_spmm``, ``bitmap_spmm_grouped``,
+   ``flash_attention``, ``block_sparse``, ``nm_spmm`` and
+   ``decode_attention``; registers, shared memory and spills from
+   ptxas).  For each variant of K1 / K1g, K2 (path x head dim x type),
+   K3 / K4 and decode attention it prints its registers,
    spilled bytes and the counts of tensor-core (``HMMA``), ``ldmatrix``
    (``LDSM``), ``cp.async`` and barrier instructions in its SASS
    (``cuobjdump -sass`` on the built library), and fails if a bf16 K2
@@ -107,6 +108,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    TFLOP/s and path (``kernels/tile_product.plan``), K3 at M = 4 also
    on the FMA path.
 
+5b. Decode attention (``ops.decode_attention``) at the served shapes,
+   bf16: olmo-1b as the longgen cell serves it (B 64, C 2048, 16 heads,
+   D 128, positions 0-2047), granite-moe-3b-a800m as the batch cell (B
+   256, C 1024, 24 / 8 heads, D 64, positions 16-200) and gemma3-4b's
+   local layers (B 64, a ring of one 1024 window, 8 / 4 heads, D 256,
+   positions 0-4095: cold ring lines).  Each output within phase 5's
+   limit of the plain version (per (slot, head) row), a second call
+   bit-equal, one launch counted per call; then timed as CUDA-graph
+   replays beside its bound (the valid K / V lines' bytes, q and the
+   output once, over 3.35 TB/s), the plain version and
+   ``scaled_dot_product_attention`` over the whole cache with the valid
+   lines as its mask (a yardstick; the port never calls it).  Every
+   engine path of phases 3-13 also counts one decode-attention launch
+   per attention layer per decode step and per chunk token of a
+   prefill call.
 6. olmo-1b under faults, with the auditor and telemetry, on phase 3's
    weights and knobs (paged, pages of 16, prefix reuse, preemption,
    chunked prefill 16, the 160-token pool): first K1 on a bitmap with
@@ -320,12 +336,15 @@ SOURCES = {"bitmap_spmm": CSRC + "bitmap_spmm.cu",
            "bitmap_spmm_grouped": CSRC + "bitmap_spmm.cu",
            "flash_attention": CSRC + "flash_attention.cu",
            "block_sparse_matmul": CSRC + "block_sparse.cu",
-           "nm_spmm": CSRC + "nm_spmm.cu"}
+           "nm_spmm": CSRC + "nm_spmm.cu",
+           "decode_attention": CSRC + "decode_attention.cu"}
 REPLACES = {"bitmap_spmm": "src/repro/kernels/bitmap_spmm.py:74",
             "bitmap_spmm_grouped": "src/repro/kernels/bitmap_spmm.py:167",
             "flash_attention": "src/repro/kernels/flash_attention.py:69",
             "block_sparse_matmul": "src/repro/kernels/block_sparse.py:49",
-            "nm_spmm": "src/repro/kernels/nm_spmm.py:52"}
+            "nm_spmm": "src/repro/kernels/nm_spmm.py:52",
+            # no Pallas kernel: the einsums XLA fuses
+            "decode_attention": "src/repro/models/layers.py:171"}
 
 
 def sync() -> None:
@@ -382,7 +401,8 @@ def bound_ms(moved: float, ops: float):
 
 def card_and_build() -> str:
     from repro_torch.kernels import (_build, bitmap_spmm, block_sparse,
-                                     flash_attention, nm_spmm)
+                                     decode_attention, flash_attention,
+                                     nm_spmm)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -404,7 +424,7 @@ def card_and_build() -> str:
     kernel_variants(built)
     entries = [bitmap_spmm._entry(), bitmap_spmm._entry(grouped=True),
                flash_attention._entry(), block_sparse._entry(),
-               nm_spmm._entry()]
+               nm_spmm._entry(), decode_attention._entry()]
     print(f"entry points: {', '.join(fn.__name__ for fn in entries)}")
     return smi
 
@@ -472,6 +492,7 @@ VARIANT_GROUPS = (
     ("K1 / K1g", "bitmap_spmm_kernel", None, 0),
     ("K2", "flash_attention", "flash_attention_mma", 4),
     ("K3 / K4", ("block_sparse", "nm_spmm"), "mma_wide", 8),
+    ("decode attention", "decode_attention", None, 0),
 )
 
 
@@ -670,6 +691,21 @@ def per_step(eng, prefill: bool = False) -> dict:
             "bitmap_spmm_grouped": cfg.num_periods * layouts.count("grouped")}
 
 
+def attention_calls(eng, prefill: bool = False) -> int:
+    """Decode-attention launches one decode step (or one prefill call:
+    one per chunk token) makes: one per attention layer."""
+    cfg = eng.cfg
+    layers = sum(b.mixer == "attn" for b in cfg.pattern) * cfg.num_periods
+    return layers * (eng.prefill_chunk if prefill else 1)
+
+
+def no_weight_kernel(launches: dict) -> bool:
+    """No product kernel launched (decode attention is the model's, not
+    the weights' dispatch)."""
+    return sum(n for k, n in launches.items()
+               if k != "decode_attention") == 0
+
+
 def serve(eng, trace, label: str) -> dict:
     """Serve ``trace`` on a warm engine with the launch counts set to 0
     just before and read just after; returns its report with the
@@ -703,8 +739,11 @@ def serve(eng, trace, label: str) -> dict:
 
 def check_counts(eng, rep, label: str) -> dict:
     """Every kernel of the path ran, exactly its per-step count for each
-    decode step and prefill call; returns the path's record."""
+    decode step and prefill call (decode attention's too); returns the
+    path's record."""
     expect, per_call = per_step(eng), per_step(eng, prefill=True)
+    expect["decode_attention"] = attention_calls(eng)
+    per_call["decode_attention"] = attention_calls(eng, prefill=True)
     calls = rep["prefill"]["calls"]
     for name, n in expect.items():
         want = n * eng.decode_steps + per_call[name] * calls
@@ -785,14 +824,14 @@ def decode_step_check(eng, gen) -> None:
           "paged decode-step logits" if tables else "decode-step logits")
 
 
-def baseline_decode_check(eng, gen) -> int:
+def baseline_decode_check(eng, gen) -> dict:
     """Phase 4: one decode step of ``eng`` with baseline mode's MoE
     dispatch (``moe_global``, what a step built under
     ``REPRO_PERF_MODE=baseline`` passes: the whole slot batch's tokens
     ranked at once, ``layers._moe_ffn_global``) through the kernels
-    against the plain versions, phase 3's rule.  Returns the step's K1g
-    launches (one per expert stack per layer, as the default
-    dispatch)."""
+    against the plain versions, phase 3's rule.  Returns the step's
+    launches by kernel (K1g one per expert stack per layer, as the
+    default dispatch; decode attention one per attention layer)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import layers
     from repro_torch.models.model import decode_step
@@ -829,6 +868,8 @@ def baseline_decode_check(eng, gen) -> int:
     got = {k: launches[None][k] for k in want}
     assert got == want, (got, want)
     assert sum(launches["torch"].values()) == 0, launches["torch"]
+    got["decode_attention"] = launches[None]["decode_attention"]
+    assert got["decode_attention"] == attention_calls(eng), got
     moe_blocks = sum(b.ffn == "moe" for b in cfg.pattern) * cfg.num_periods
     assert len(dispatched) == 2 * moe_blocks, (len(dispatched), moe_blocks)
     agree(out[None], out["torch"],
@@ -836,7 +877,7 @@ def baseline_decode_check(eng, gen) -> int:
     print(f"baseline mode: {got['bitmap_spmm_grouped']} K1g + "
           f"{got['bitmap_spmm']} K1 launches in one decode step, "
           f"{moe_blocks} MoE layers through the global dispatch")
-    return got["bitmap_spmm_grouped"]
+    return got
 
 
 def prefill_call_check(eng, gen, chunk: int) -> None:
@@ -1076,7 +1117,7 @@ def olmo_engine_phase(cfg, device, gen, trace_len: int = 8):
                         stream_weights=False, bitmap_head=False,
                         device=device)
     drep = serve(dense, trace, "dense-dispatch engine (yardstick)")
-    assert sum(drep["launches"].values()) == 0
+    assert no_weight_kernel(drep["launches"]), drep["launches"]
     print(f"tok/s packed {rep['tok_per_s']:.1f} vs dense-dispatch "
           f"{drep['tok_per_s']:.1f}")
     del dense
@@ -1269,7 +1310,7 @@ def granite_engine_phase(cfg, device, gen, chunk: int = 16,
                         stream_weights=False, bitmap_head=False,
                         device=device)
     drep = serve(dense, trace, "dense-dispatch engine (yardstick)")
-    assert sum(drep["launches"].values()) == 0
+    assert no_weight_kernel(drep["launches"]), drep["launches"]
     print(f"tok/s packed {rep['tok_per_s']:.1f} vs dense-dispatch "
           f"{drep['tok_per_s']:.1f}")
     del dense
@@ -1584,7 +1625,7 @@ def kernel_layer_phase(olmo_cfg, gemma_cfg, device, gen,
     calls = {"flash_attention": len(a_out),
              **{name: len(out) for name, out in m_out.items()}}
     assert launches == {"bitmap_spmm": 0, "bitmap_spmm_grouped": 0,
-                        **calls}, (launches, calls)
+                        "decode_attention": 0, **calls}, (launches, calls)
     print(f"main path, kernel layer entry points at full width: launches "
           f"{launches}")
 
@@ -1648,6 +1689,118 @@ def kernel_layer_phase(olmo_cfg, gemma_cfg, device, gen,
     return {name: ({"path": path, "launches": launches[name],
                     "calls": calls[name]}, worst[name], timings[name])
             for name in calls}
+
+
+def decode_attention_cases(olmo_cfg, granite_cfg, gemma_cfg):
+    """Phase 5b's shapes, from the configs: (label, B, C, Hq, Hkv, D,
+    window, ring, lowest and highest position), each slot's position
+    drawn uniformly between the two.  olmo-1b as the longgen cell serves
+    it (positions over the whole cache), granite-moe as the batch cell
+    (prompts of 16-64 and up to ~140 generated), gemma3-4b's local
+    layers (a ring of one window, positions up to four windows: a
+    quarter of the slots have cold lines)."""
+    window = next(b.window for b in gemma_cfg.pattern if b.window)
+
+    def heads(cfg):
+        return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    return [(f"{olmo_cfg.name} longgen", 64, 2048, *heads(olmo_cfg), None,
+             False, 0, 2047),
+            (f"{granite_cfg.name} batch", 256, 1024, *heads(granite_cfg),
+             None, False, 16, 200),
+            (f"{gemma_cfg.name} local ring", 64, window, *heads(gemma_cfg),
+             window, True, 0, 4 * window - 1)]
+
+
+def time_decode_attention(label, q, kc, vc, pos, window, ring):
+    """Decode attention at one shape: kernel and SDPA (over the whole
+    cache, the valid lines as its boolean mask) as CUDA-graph replays,
+    input sets cycled past the L2; the plain version eagerly.  Bound:
+    the valid K and V lines, q and the output once."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import valid_lines
+    b, c, hkv, d = kc.shape
+    hq = q.shape[2]
+    valid = valid_lines(pos, c, window, ring)
+    lines = int(valid.sum())
+    moved = (2 * lines * hkv * d * kc.element_size()
+             + 2 * q.numel() * q.element_size())
+    b_ms, by = bound_ms(moved, 4 * hq * d * lines)
+    sets = [(q, kc, vc)] + [tuple(t.clone() for t in (q, kc, vc))
+                            for _ in range(_copies(moved) - 1)]
+    t_k = graph_ms(lambda: [ops.decode_attention(*s, pos, window=window,
+                                                 ring=ring)
+                            for s in sets], 10) / len(sets)
+    t_p = time_ms(lambda: ops.decode_attention(q, kc, vc, pos, impl="torch",
+                                               window=window, ring=ring), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    args = {"attn_mask": valid[:, None, None, :],
+            **({"enable_gqa": True} if hq != hkv else {})}
+    lib = [tuple(t.transpose(1, 2) for t in s) for s in sets]
+    t_l = graph_ms(lambda: [sdpa(*s, **args) for s in lib], 10) / len(lib)
+    lib_err = (sdpa(*lib[0], **args).transpose(1, 2).float()
+               - ops.decode_attention(q, kc, vc, pos, window=window,
+                                      ring=ring).float()).abs().max().item()
+    backend = _sdpa_backend(*lib[0], args)
+    print(f"  decode attention {label} q {tuple(q.shape)} cache "
+          f"{tuple(kc.shape)} window {window} ring {ring}: kernel "
+          f"{t_k:.4f} ms | bound {b_ms:.4f} ms ({by}; {lines} valid lines of "
+          f"{b * c}, {moved / 1e6:.1f} MB) = {100 * b_ms / t_k:.1f}% | "
+          f"{moved / t_k / 1e6:.0f} GB/s | plain {t_p:.4f} ms | SDPA "
+          f"({backend}, whole cache) {t_l:.4f} ms, max |SDPA - kernel| "
+          f"{lib_err:.3g}")
+    del sets, lib
+    return {"shape": label, "window": window, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": t_l,
+            "library": f"scaled_dot_product_attention ({backend})",
+            "valid_lines": lines, "gb_per_s": moved / t_k / 1e6}
+
+
+def decode_attention_phase(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
+                           cases=None) -> dict:
+    """Phase 5b: decode attention (``ops.decode_attention``) at the
+    served shapes, bf16, each output against the plain version on the
+    same inputs (phase 5's limit, per (slot, head) row), a second call
+    bit-equal to the first, then timed.  Returns {"decode_attention":
+    (path record, max |kernel - plain|, timings)}."""
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    cases = cases or decode_attention_cases(olmo_cfg, granite_cfg,
+                                            gemma_cfg)
+    bf16 = torch.bfloat16
+    worst, timings, launches = 0.0, [], 0
+    for label, b, c, hq, hkv, d, window, ring, lo, hi in cases:
+        q = torch.randn(b, 1, hq, d, generator=gen, device=device).to(bf16)
+        kc, vc = (torch.randn(b, c, hkv, d, generator=gen,
+                              device=device).to(bf16) for _ in range(2))
+        pos = torch.randint(lo, hi + 1, (b,), generator=gen, device=device)
+        sync()
+        reset_launches()
+        out = ops.decode_attention(q, kc, vc, pos, window=window, ring=ring)
+        again = ops.decode_attention(q, kc, vc, pos, window=window,
+                                     ring=ring)
+        ref = ops.decode_attention(q, kc, vc, pos, impl="torch",
+                                   window=window, ring=ring)
+        sync()
+        assert LAUNCHES["decode_attention"] == 2, (label, dict(LAUNCHES))
+        launches += LAUNCHES["decode_attention"]
+        assert torch.equal(out, again), label
+        rms = ref.float().square().mean(-1, keepdim=True).sqrt()
+        name = f"decode attention {label} {tuple(kc.shape)}"
+        err, used, zero = scaled_compare(name, out, ref, ATTN_ATOL[bf16],
+                                         rms)
+        worst = max(worst, err)
+        print(f"  {name}: max |kernel - plain| {err:.3g}, {used:.3g} of the "
+              f"limit; a zero output fails at {100 * zero:.1f}% of the "
+              f"non-zero elements; two calls bit-equal")
+        del out, again, ref, rms
+        timings.append(time_decode_attention(label, q, kc, vc, pos, window,
+                                             ring))
+        del q, kc, vc
+        torch.cuda.empty_cache()
+    reset_launches()
+    path = {"path": "decode attention at the served shapes (phase 5b)",
+            "launches": launches, "calls": launches}
+    return {"decode_attention": (path, worst, timings)}
 
 
 # Phase 6's run: the first CHAOS_REQUESTS requests of phase 3's
@@ -1817,7 +1970,8 @@ def chaos_phase(base, shared, device, gen) -> dict:
     """Phase 6: olmo-1b at full width on phase 3's weights, trace and
     knobs (paged, pages of 16, prefix reuse, preemption, chunked prefill
     16, the 160-token pool) under the seeded chaos plan, with the
-    auditor and every telemetry artifact.  Returns K1's path record."""
+    auditor and every telemetry artifact.  Returns K1's and decode
+    attention's path records by kernel."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.serve import (FaultPlan, ServeEngine, validate_events,
                                    validate_trace)
@@ -1885,6 +2039,15 @@ def chaos_phase(base, shared, device, gen) -> dict:
         print("K1 launches per call by quarantined tensors: " + "; ".join(
             f"{name} with {q} quarantined: {sorted(n)}"
             for (name, q), n in sorted(by_state.items())))
+        # decode attention: one launch per attention layer per decode
+        # call and per chunk token of a prefill call, quarantine or not
+        n_calls = {kind: sum(c[0] == kind for c in calls)
+                   for kind in ("decode", "prefill")}
+        attn = {"decode": attention_calls(base),
+                "prefill": attention_calls(eng, prefill=True)}
+        assert rep["launches"]["decode_attention"] == sum(
+            attn[k] * n for k, n in n_calls.items()), (rep["launches"],
+                                                       n_calls, attn)
 
         # telemetry artifacts
         stats = validate_trace(files["trace_out"])
@@ -1952,17 +2115,23 @@ def chaos_phase(base, shared, device, gen) -> dict:
               f"check on the card {1e3 * parts['finite_s']:.1f} ms")
         print(f"[chaos run: engine {built:.1f}s, "
               f"{time.perf_counter() - t0:.1f}s in all]")
-    record = {"path": f"{cfg.name}, paged, reuse + preempt, chaos + audit",
-              "launches": rep["launches"]["bitmap_spmm"],
-              "launches_per_step": per_step(base)["bitmap_spmm"],
-              "launches_per_prefill_call": per_step(
-                  base, prefill=True)["bitmap_spmm"],
-              "decode_steps": eng.decode_steps,
-              "prefill_calls": rep["prefill"]["calls"]}
+    label = f"{cfg.name}, paged, reuse + preempt, chaos + audit"
+    records = {"bitmap_spmm": {
+        "path": label, "launches": rep["launches"]["bitmap_spmm"],
+        "launches_per_step": per_step(base)["bitmap_spmm"],
+        "launches_per_prefill_call": per_step(
+            base, prefill=True)["bitmap_spmm"],
+        "decode_steps": eng.decode_steps,
+        "prefill_calls": rep["prefill"]["calls"]}, "decode_attention": {
+        "path": label, "launches": rep["launches"]["decode_attention"],
+        "launches_per_step": attn["decode"],
+        "launches_per_prefill_call": attn["prefill"],
+        "decode_steps": n_calls["decode"],
+        "prefill_calls": n_calls["prefill"]}}
     assert LAUNCHES["bitmap_spmm_grouped"] == 0
     del eng
     torch.cuda.empty_cache()
-    return record
+    return records
 
 
 def lifecycle_pass(base, shared, device) -> None:
@@ -2261,6 +2430,7 @@ def ssm_phase(rwkv_cfg, jamba_cfg, jamba_smoke, device, gen) -> dict:
             "bitmap_spmm_grouped": [path["bitmap_spmm_grouped"]]
             + [p["bitmap_spmm_grouped"] for p in smoke
                if "bitmap_spmm_grouped" in p],
+            "decode_attention": [p["decode_attention"] for p in smoke],
             "times": times}
 
 
@@ -2608,12 +2778,12 @@ def serve_trained(cfg, params, device, gen, n: int = 4, budget: int = 16,
     path = check_counts(eng, rep, f"{cfg.name} trained in phase 8a, "
                                   f"prompt walk")
     decode_step_check(eng, gen)
-    return path["bitmap_spmm"]
+    return path
 
 
 def training_phase(cfg, device, gen, smi: str, **sizes) -> dict:
     """Phase 8: training on the card.  Returns 8a's record and 8d's K1
-    path record."""
+    and decode-attention path records."""
     t0 = time.perf_counter()
     params, masks, rec = train_full_width(cfg, device, smi=smi, **sizes)
     del masks
@@ -2631,7 +2801,8 @@ def training_phase(cfg, device, gen, smi: str, **sizes) -> dict:
     del params
     torch.cuda.empty_cache()
     phase(f"phase 8d, {cfg.name} as trained, served through K1", t0)
-    return {"train": rec, "bitmap_spmm": path}
+    return {"train": rec, "bitmap_spmm": path["bitmap_spmm"],
+            "decode_attention": path["decode_attention"]}
 
 
 # ------------------------------------------------------------ phase 2 ----
@@ -3556,7 +3727,8 @@ def dryrun_cell_on_host() -> float:
 
 
 def sampled_phase(cfg, device, gen) -> list:
-    """Phase 13; returns the path records of its two served runs."""
+    """Phase 13; returns the path records (by kernel) of its three
+    served runs."""
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(cfg, num_slots=4, max_len=256, sparsity=0.5, seed=0,
                       device=device)
@@ -3600,7 +3772,7 @@ def sampled_phase(cfg, device, gen) -> list:
     del eng
     torch.cuda.empty_cache()
     dryrun_cell_on_host()
-    return [p["bitmap_spmm"] for p in paths]
+    return paths
 
 
 def phase(label: str, t0: float) -> float:
@@ -3616,14 +3788,16 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
         jamba_cfg=None, jamba_smoke=None, ssm_shapes=SSM_SHAPES,
         mix_b_shapes=MIX_B_SHAPES, sharded_cases=SHARDED_CASES,
         sharded_expert_cases=SHARDED_EXPERT_CASES,
-        smi: str = "", musicgen_cfg=None) -> dict:
+        smi: str = "", musicgen_cfg=None, decode_cases=None) -> dict:
     """Phases 2-13 (11 with ``musicgen_cfg``); returns the kernels
     record.  A kernel's ``launches``
     sums its ``paths`` (each path's run with the counts set to 0 just
     before it).  K1's and K1g's ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are one decode step's calls at M = 4; K2's are
-    olmo-1b's bf16 causal shape and K3's / K4's the gate/up weight at
-    M = 4, with every timed shape under ``timings`` (``ms_scope``)."""
+    olmo-1b's bf16 causal shape, K3's / K4's the gate/up weight at
+    M = 4 and decode attention's olmo-1b's longgen shape (phase 5b,
+    ``decode_cases`` or ``decode_attention_cases``), with every timed
+    shape under ``timings`` (``ms_scope``)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     t = time.perf_counter()
     worst = {"bitmap_spmm": max(
@@ -3653,7 +3827,7 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
     torch.cuda.empty_cache()
     t = phase(f"phase 3, {olmo_cfg.name}", t)
 
-    eng, granite_paths, baseline_k1g = granite_engine_phase(granite_cfg,
+    eng, granite_paths, baseline = granite_engine_phase(granite_cfg,
                                                              device, gen)
     g_times, whole = granite_timing_phase(eng, device, gen)
     del eng
@@ -3662,9 +3836,13 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
 
     layer = kernel_layer_phase(olmo_cfg, gemma_cfg, device, gen, attn=attn,
                                rows=rows, timed_rows=timed_rows)
+    t = phase("phase 5, kernels K2-K4 against their plain versions and "
+              "timed", t)
+    layer.update(decode_attention_phase(olmo_cfg, granite_cfg, gemma_cfg,
+                                        device, gen, cases=decode_cases))
     for name, (_, err, _) in layer.items():
         worst[name] = err
-    t = phase("phase 5, kernels K2-K4 against their plain versions and "
+    t = phase("phase 5b, decode attention against its plain version and "
               "timed", t)
 
     chaos_path = chaos_phase(olmo, shared, device, gen)
@@ -3711,12 +3889,27 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                 "library_ms": lib_ms, "ms_scope": scope, **extra}
 
-    k1_paths = ([p["bitmap_spmm"] for p in olmo_paths] + [chaos_path]
+    k1_paths = ([p["bitmap_spmm"] for p in olmo_paths]
+                + [chaos_path["bitmap_spmm"]]
                 + [p["bitmap_spmm"] for p in granite_paths]
                 + ssm["bitmap_spmm"] + [trained["bitmap_spmm"]] + sharded
                 + [p["bitmap_spmm"] for p in music_paths]
                 + [p for k, p in example_paths if k == "bitmap_spmm"]
-                + sampled_paths)
+                + [p["bitmap_spmm"] for p in sampled_paths])
+    # decode attention on the engines' paths (the sharded ranks of phase 9
+    # are not counted), then phase 5b's direct calls
+    main_paths = {"decode_attention": (
+        [p["decode_attention"] for p in olmo_paths]
+        + [chaos_path["decode_attention"]]
+        + [p["decode_attention"] for p in granite_paths]
+        + [{"path": f"{granite_cfg.name}, baseline-mode decode step",
+            "launches": baseline["decode_attention"],
+            "launches_per_step": baseline["decode_attention"],
+            "decode_steps": 1}]
+        + ssm["decode_attention"] + [trained["decode_attention"]]
+        + [p["decode_attention"] for p in music_paths]
+        + [p for k, p in example_paths if k == "decode_attention"]
+        + [p["decode_attention"] for p in sampled_paths])}
     k1g_paths = ([p["bitmap_spmm_grouped"] for p in granite_paths]
                  + ssm["bitmap_spmm_grouped"]
                  + [p for k, p in example_paths
@@ -3763,14 +3956,15 @@ def run(olmo_cfg, granite_cfg, gemma_cfg, device, gen,
                                        "decode step"},
                rwkv6=rwkv("bitmap_spmm_grouped"),
                baseline_mode_decode_step={
-                   "launches": baseline_k1g,
+                   "launches": baseline["bitmap_spmm_grouped"],
                    "scope": f"one {granite_cfg.name} decode step in "
                             f"baseline mode (global MoE dispatch); a "
                             f"check, not counted in launches"})] + [
-        record(name, [path], tuple(timings[0][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")),
-            f"{timings[0]['shape']}, bf16; library "
-            f"{timings[0]['library']}", timings=timings)
+        record(name, main_paths.get(name, []) + [path],
+               tuple(timings[0][key] for key in (
+                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")),
+               f"{timings[0]['shape']}, bf16; library "
+               f"{timings[0]['library']}", timings=timings)
         for name, (path, _, timings) in layer.items()]}
 
 

@@ -38,13 +38,13 @@ _ACTIVE: List = []
 
 #: the kernel layer's entry points, each a ``kernel.<name>`` range
 KERNELS = ("bitmap_spmm", "bitmap_spmm_grouped", "block_sparse_matmul",
-           "flash_attention", "nm_spmm")
+           "flash_attention", "nm_spmm", "decode_attention")
 #: the engine step's phases (``serve/telemetry.PHASES``), each a
 #: ``serve.<phase>`` range inside ``serve.step``
 SERVE_PHASES = ("schedule", "prefill", "page_ensure", "decode",
                 "host_sync", "sample", "deadline_sweep", "audit")
 #: every range the program opens: the kernel entry points, decode
-#: attention (cache casts, both products, mask, softmax), the MoE layer
+#: attention (its kernel's range nested), the MoE layer
 #: (router to combine, its grouped products nested), the engine step and
 #: its phases, a train step's gradients and its update (gradient masks,
 #: the optimizer, parameter masks)

@@ -9,7 +9,8 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"bitmap_spmm": 0, "bitmap_spmm_grouped": 0,
                              "flash_attention": 0,
-                             "block_sparse_matmul": 0, "nm_spmm": 0}
+                             "block_sparse_matmul": 0, "nm_spmm": 0,
+                             "decode_attention": 0}
 
 
 def reset_launches() -> None:

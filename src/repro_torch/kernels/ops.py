@@ -22,6 +22,7 @@ import torch
 from repro_torch.counting import counted, tensor_bytes
 from repro_torch.kernels import bitmap_spmm as _bitmap_spmm
 from repro_torch.kernels import block_sparse as _block_sparse
+from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bitmap_spmm import shard_slice
@@ -77,6 +78,19 @@ def _attention_charge(counter, q: torch.Tensor, k: torch.Tensor,
     return (4.0 * math.prod(q.shape[:-1]) * k.shape[-2] * q.shape[-1],
             tensor_bytes(q) + tensor_bytes(k) + tensor_bytes(v), q.shape,
             q.dtype, q.device)
+
+
+def _decode_attention_charge(counter, q: torch.Tensor,
+                             k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             *_, **__):
+    """Decode attention's charge for ``counted``: 4·B·Hq·C·D FLOPs and
+    q's and the whole caches' bytes, as the reference's count of its
+    einsums over every cache line."""
+    b, c, _, d = k_cache.shape
+    hq = q.shape[2]
+    return (4.0 * b * hq * c * d,
+            tensor_bytes(q) + tensor_bytes(k_cache) + tensor_bytes(v_cache),
+            (b, 1, hq, d), q.dtype, q.device)
 
 
 def flat_product(x: torch.Tensor, w, impl: str | None, kernel, plain,
@@ -186,3 +200,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window)
     return _ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+@counted("decode_attention", _decode_attention_charge)
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor,
+                     impl: str | None = None, *, window: int | None = None,
+                     ring: bool = False) -> torch.Tensor:
+    """Single-token attention against the slotted cache: q (B, 1, Hq, D),
+    caches (B, C, Hkv, D), pos a scalar or (B,) -> (B, 1, Hq, D)
+    (``kernels/decode_attention``)."""
+    impl = resolve_impl(q, impl)
+    if impl == "cuda":
+        return _decode_attention.decode_attention(q, k_cache, v_cache, pos,
+                                                  window=window, ring=ring)
+    return _decode_attention.decode_attention_ref(q, k_cache, v_cache, pos,
+                                                  window=window, ring=ring)

@@ -23,13 +23,15 @@ op as it is dispatched, under the reference analyzer's rules:
   the wire.
 
 The kernel layer's entry points (``kernels/ops.bitmap_spmm``,
-``bitmap_spmm_grouped``, ``block_sparse_matmul``, ``flash_attention``
-and ``kernels/nm_spmm.nm_spmm``) report themselves to the active counter
-as one op each (``counting.counted``, which calls ``kernel_call``):
-FLOPs counted densely, 2·M·K·N, as the reference's analyzer counts its
-``xla-oracle`` dot, and the bytes the implementation fetches (the
-weight's dense rendering for the plain version, the format's
-``hbm_bytes`` for the card's kernel), with nothing counted inside.  Given meta tensors an entry point returns an empty
+``bitmap_spmm_grouped``, ``block_sparse_matmul``, ``flash_attention``,
+``decode_attention`` and ``kernels/nm_spmm.nm_spmm``) report themselves
+to the active counter as one op each (``counting.counted``, which calls
+``kernel_call``): FLOPs counted densely, 2·M·K·N, as the reference's
+analyzer counts its ``xla-oracle`` dot (decode attention 4·B·Hq·C·D over
+the whole cache, as its einsums), and the bytes the implementation
+fetches (the weight's dense rendering for the plain version, the
+format's ``hbm_bytes`` for the card's kernel; decode attention q, both
+whole caches and the output), with nothing counted inside.  Given meta tensors an entry point returns an empty
 result of the right shape and charges what ``dispatch`` would fetch, so
 a step is counted on meta tensors without running it (the reference's
 "lowering never executes").  With no counter active the entry points pay

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.counting import span
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 
@@ -150,8 +151,11 @@ def scan_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      window: Optional[int] = None,
-                     ring: bool = False) -> torch.Tensor:
-    """Single-token attention against a cache.
+                     ring: bool = False,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """Single-token attention against a cache, through the kernel layer
+    (``kernels/ops.decode_attention``: the hand-written kernel on the
+    card, its plain version on the CPU or with ``impl="torch"``).
 
     q: (B, 1, Hq, D); caches: (B, C, Hkv, D); pos: scalar position or a
     (B,) vector of per-slot positions.  ``ring`` marks a sliding-window
@@ -162,33 +166,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     so the padded lines past the window are never attended.
     """
     with span("attn.decode"):
-        b, c, hkv, d = k_cache.shape
-        hq = q.shape[2]
-        g = hq // hkv
-        scale = d ** -0.5
-        qh = q[:, 0].reshape(b, hkv, g, d).to(k_cache.dtype)
-        s = torch.einsum("bkgd,bckd->bkgc", qh.float(),
-                         k_cache.float()) * scale
-        s = s.reshape(b, hq, c)
-        pc = pos.expand(b) if pos.dim() == 0 else pos
-        pc = pc.to(torch.int64)[:, None]
-        slots = torch.arange(c, device=q.device)[None, :]
-        if ring:
-            # slot i holds the latest position p <= pos with p % C == i;
-            # cold slots imply p < 0 and are masked out
-            base = pc - (pc % c)
-            slot_pos = torch.where(slots <= (pc % c), base + slots,
-                                   base - c + slots)
-        else:
-            slot_pos = slots.expand(b, c)
-        valid = (slot_pos <= pc) & (slot_pos >= 0)
-        if window is not None:
-            valid &= (pc - slot_pos) < window
-        s = s.masked_fill(~valid[:, None, :], -1e30)
-        p = torch.softmax(s, dim=-1).reshape(b, hkv, g, c)
-        out = torch.einsum("bkgc,bckd->bkgd", p.to(v_cache.dtype).float(),
-                           v_cache.float())
-        return out.reshape(b, 1, hq, d).to(q.dtype)
+        return ops.decode_attention(q, k_cache, v_cache, pos, impl,
+                                    window=window, ring=ring)
 
 
 def slot_kv_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -257,7 +236,6 @@ def matmul_or_bitmap(h: torch.Tensor, w: torch.Tensor, bw,
     through ``kernels/ops.bitmap_spmm`` (the CUDA kernel on the card)."""
     if bw is None:
         return h @ w.to(h.dtype)
-    from repro_torch.kernels import ops
     return ops.bitmap_spmm(h, bw, impl=impl)
 
 
@@ -289,7 +267,6 @@ def expert_matmul_or_bitmap(h: torch.Tensor, w: torch.Tensor, bw,
     leading dims folded into each expert's M."""
     if bw is None:
         return torch.einsum("...eck,ekn->...ecn", h, w.to(h.dtype))
-    from repro_torch.kernels import ops
     lead = h.shape[:-3]
     e, c, k = h.shape[-3:]
     hx = h.reshape(-1, e, c, k).transpose(0, 1).reshape(e, -1, k)

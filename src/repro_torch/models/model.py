@@ -464,7 +464,7 @@ def _decode_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
         L.paged_kv_update(cache["k"], cache["v"], k, v, page_table, slot)
         o = L.decode_attention(q, L.paged_gather(cache["k"], page_table),
                                L.paged_gather(cache["v"], page_table), pos,
-                               window=blk.window, ring=ring)
+                               window=blk.window, ring=ring, impl=impl)
         return L.matmul_or_bitmap(o.reshape(b, 1, h * hd), p["wo"],
                                   pk.get("wo"), impl)
     c = cache["k"].shape[1]
@@ -480,7 +480,7 @@ def _decode_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
         slot = (posv % c) if ring else posv.clamp(0, c - 1)
         L.slot_kv_update(cache["k"], cache["v"], k, v, slot)
     o = L.decode_attention(q, cache["k"], cache["v"], pos,
-                           window=blk.window, ring=ring)
+                           window=blk.window, ring=ring, impl=impl)
     return L.matmul_or_bitmap(o.reshape(b, 1, h * hd), p["wo"],
                               pk.get("wo"), impl)
 
@@ -638,7 +638,8 @@ def _prefill_attn(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig,
                              v[:, t:t + 1], slot, valid=t < lens)
             k_att, v_att = cache["k"], cache["v"]
         outs.append(L.decode_attention(q[:, t:t + 1], k_att, v_att, pos_t,
-                                       window=blk.window, ring=ring))
+                                       window=blk.window, ring=ring,
+                                       impl=impl))
     o = torch.cat(outs, dim=1)                             # (B, C, Hq, hd)
     return L.matmul_or_bitmap(o.reshape(b, c_chunk, h * hd), p["wo"],
                               pk.get("wo"), impl)

@@ -136,6 +136,7 @@ def _entry_cases():
     nm = pack_nm(prune_nm(w, 1, 4), 1, 4, (16, 16))
     x = _rand(m, k, seed=3)
     q, kk, v = _rand(1, 4, 8, 16), _rand(1, 2, 8, 16), _rand(1, 2, 8, 16)
+    dq, dk, dv = _rand(3, 1, 4, 16), _rand(3, 12, 2, 16), _rand(3, 12, 2, 16)
     return [
         ("bitmap_spmm", lambda x, w: ops.bitmap_spmm(x, w), (x, bw),
          2 * m * k * n),
@@ -147,6 +148,9 @@ def _entry_cases():
         ("flash_attention",
          lambda q, k, v: ops.flash_attention(q, k, v, window=4),
          (q, kk, v), 4 * 4 * 8 * 8 * 16),
+        ("decode_attention",
+         lambda q, k, v, pos: ops.decode_attention(q, k, v, pos, window=6),
+         (dq, dk, dv, torch.tensor([0, 5, 30])), 4 * 3 * 4 * 12 * 16),
     ]
 
 
@@ -171,6 +175,28 @@ def test_entry_point_is_one_op_on_meta_and_executed(case):
         assert cc.ops[0][2] == x_out + w.hbm_bytes
     # no counter: the entry point runs as before
     torch.testing.assert_close(fn(*args), out, rtol=0, atol=0)
+
+
+def test_decode_attention_on_meta_is_one_op_charged_the_whole_cache():
+    """``ops.decode_attention`` on meta tensors: one op of 4·B·Hq·C·D
+    FLOPs charged q's, both whole caches' (the reference's count of its
+    einsums reads every line) and the output's bytes, whatever the
+    dispatch."""
+    b, c, hq, hkv, d = 3, 40, 6, 2, 64
+    bf16 = torch.bfloat16
+    q = torch.empty(b, 1, hq, d, dtype=bf16, device=META)
+    kc, vc = (torch.empty(b, c, hkv, d, dtype=bf16, device=META)
+              for _ in range(2))
+    pos = torch.empty(b, dtype=torch.int64, device=META)
+    want = [("decode_attention", 4.0 * b * hq * c * d,
+             2 * (b * hq * d * 2) + 2 * (b * c * hkv * d * 2))]
+    for dispatch in ("torch", "cuda"):
+        out, cnt = count(lambda: ops.decode_attention(q, kc, vc, pos,
+                                                      ring=True, window=c),
+                         dispatch=dispatch)
+        assert cnt.ops == want
+        assert out.device.type == META and out.shape == q.shape
+        assert out.dtype == bf16
 
 
 # ------------------------------------------------ steps vs the reference ----

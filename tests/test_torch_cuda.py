@@ -144,6 +144,188 @@ def test_paged_decode_step_equals_contiguous_on_card(cuda):
     assert LAUNCHES["bitmap_spmm"] == 2 * 20 * 7 * cfg.num_layers
 
 
+# Decode attention (kernels/decode_attention) against its plain version.
+# Tolerance, in chip_smoke.scaled_compare's scaled form: |kernel - plain|
+# <= min(fixed, scaled x the (slot, head) row's rms) + 1e-2 |plain|, fixed
+# / scaled 5e-2 / 5e-2 in bf16 (the reference sweep's attention limit:
+# with several splits p is normalised by its split's sum before it is
+# rounded to bf16, not by the slot's, one bf16 rounding of each p apart;
+# sums run in another order; the output is rounded to bf16) and 2e-3 /
+# 1e-3 in float32 (no rounding of p: the order of the sums alone).
+# (label, B, C, Hq, Hkv, D, window, ring, lowest and highest position)
+DECODE_SHAPES = [
+    ("olmo-1b", 64, 2048, 16, 16, 128, None, False, 0, 2047),
+    ("granite-moe-3b-a800m", 256, 1024, 24, 8, 64, None, False, 0, 1023),
+    ("gemma3-4b local ring", 16, 1024, 8, 4, 256, 1024, True, 0, 4095),
+    ("smoke D 16, past C - 1", 3, 32, 4, 2, 16, None, False, 0, 40),
+    ("D 32, window without ring", 4, 600, 4, 2, 32, 100, False, 0, 700),
+    ("g 12 (starcoder2)", 4, 700, 48, 4, 128, None, False, 0, 699),
+    ("g 8, paged ring C > window", 4, 1040, 16, 2, 128, 1000, True, 0,
+     3000),
+    ("g 20: two head groups", 2, 300, 20, 1, 64, None, False, 0, 299),
+]
+
+
+def _decode_inputs(cuda, b, c, hq, hkv, d, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, 1, hq, d, generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn(b, c, hkv, d, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    return q, kc, vc
+
+
+def _decode_close(out, want, label):
+    fixed, scaled = ((5e-2, 5e-2) if want.dtype == torch.bfloat16
+                     else (2e-3, 1e-3))
+    want = want.float()
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    limit = torch.clamp(scaled * rms, max=fixed) + 1e-2 * want.abs()
+    diff = (out.float() - want).abs()
+    assert out.shape == want.shape and bool((diff <= limit).all()), (
+        label, diff.max().item(), (diff / limit).max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_SHAPES, ids=lambda c: c[0])
+def test_decode_attention_kernel_matches_plain(cuda, case):
+    """bf16 at the served shapes (olmo-1b's longgen cache, granite's GQA
+    24 / 8, gemma3-4b's ring with cold lines) and at the other head dims,
+    groupings and masks the configurations use; one launch counted per
+    call."""
+    label, b, c, hq, hkv, d, window, ring, lo, hi = case
+    q, kc, vc = _decode_inputs(cuda, b, c, hq, hkv, d, torch.bfloat16, c + d)
+    pos = torch.randint(lo, hi + 1, (b,), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(b))
+    reset_launches()
+    out = ops.decode_attention(q, kc, vc, pos, window=window, ring=ring)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "decode_attention": 1}
+    assert out.dtype == q.dtype
+    _decode_close(out, ops.decode_attention(q, kc, vc, pos, impl="torch",
+                                            window=window, ring=ring),
+                  label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["scalar pos", "int32 pos", "clamp",
+                                  "float32", "no valid line",
+                                  "strided q"])
+def test_decode_attention_kernel_edge_cases(cuda, case):
+    """A scalar position, int32 positions, positions at and past C - 1
+    (the slot write clamps there; every line stays valid), a float32
+    cache with q in bf16, slots with no valid line (a window that ended
+    before line 0, a negative position: uniform over all C lines, as the
+    plain softmax over -1e30 scores), and q sliced from a chunk (batch
+    stride past one token), as chunked prefill passes it."""
+    b, c, hq, hkv, d = 4, 700, 6, 2, 64
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    q, kc, vc = _decode_inputs(cuda, b, c, hq, hkv, d, dtype, 7)
+    window, ring = None, False
+    pos = torch.tensor([0, 299, 300, 699], device=cuda)
+    if case == "scalar pos":
+        pos = torch.tensor(555, device=cuda)
+    elif case == "int32 pos":
+        pos = pos.to(torch.int32)
+    elif case == "clamp":
+        pos = torch.tensor([c - 1, c, c + 500, 5 * c], device=cuda)
+    elif case == "float32":
+        q = q.to(torch.bfloat16)
+    elif case == "no valid line":
+        window = 50
+        pos = torch.tensor([c + 60, -1, c + 48, 10], device=cuda)
+    elif case == "strided q":
+        chunk = torch.randn(b, 5, hq, d, device=cuda).to(dtype)
+        q = chunk[:, 3:4]
+    out = ops.decode_attention(q, kc, vc, pos, window=window, ring=ring)
+    want = ops.decode_attention(q, kc, vc, pos, impl="torch", window=window,
+                                ring=ring)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype
+    _decode_close(out, want, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring", [False, True])
+def test_decode_attention_kernel_is_deterministic_and_counted(cuda, ring):
+    """Two calls on the same inputs are bit-equal (no atomics in the
+    sums), so are a replay of the call captured in a CUDA graph and a
+    batch holding the same slot among others; each eager call adds one
+    launch."""
+    b, c, hq, hkv, d = 8, 1024, 24, 8, 64
+    q, kc, vc = _decode_inputs(cuda, b, c, hq, hkv, d, torch.bfloat16, 3)
+    pos = torch.tensor([5, 255, 256, 600, 1023, 1500, 3000, 100],
+                       device=cuda)
+    kw = dict(window=c if ring else None, ring=ring)
+    reset_launches()
+    first = ops.decode_attention(q, kc, vc, pos, **kw)
+    second = ops.decode_attention(q, kc, vc, pos, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**NONE, "decode_attention": 2}
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.decode_attention(q, kc, vc, pos, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    one = ops.decode_attention(q[3:4], kc[3:4].contiguous(),
+                               vc[3:4].contiguous(), pos[3:4], **kw)
+    assert torch.equal(one, first[3:4])
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_rejects_bad_inputs(cuda):
+    """CPU tensors, a head dim outside {16, ..., 256}, positions on the
+    host or of a float type, a float16 cache: each raises, nothing falls
+    back to the plain version, nothing is counted."""
+    from repro_torch.kernels import decode_attention as da
+    q, kc, vc = _decode_inputs(cuda, 2, 64, 4, 2, 64, torch.bfloat16, 0)
+    pos = torch.tensor([3, 40], device=cuda)
+    reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(q.cpu(), kc.cpu(), vc.cpu(), pos.cpu())
+    with pytest.raises(ValueError, match="head dim"):
+        da.decode_attention(q[..., :48].contiguous(),
+                            kc[..., :48].contiguous(),
+                            vc[..., :48].contiguous(), pos)
+    with pytest.raises(ValueError, match="lies on"):
+        da.decode_attention(q, kc, vc, pos.cpu())
+    with pytest.raises(ValueError, match="pos must be"):
+        da.decode_attention(q, kc, vc, pos.float())
+    with pytest.raises(TypeError):
+        da.decode_attention(q.half(), kc.half(), vc.half(), pos)
+    assert LAUNCHES == NONE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c, window, ring, splits", [
+    (256, None, False, 1), (257, None, False, 2), (2048, None, False, 8),
+    (1024, 1024, True, 5), (1040, 1000, True, 5), (64, 64, True, 2)])
+def test_decode_attention_entry_sizes_its_own_scratch(cuda, c, window, ring,
+                                                      splits):
+    """The source alone decides a call's splits: it asks for (D + 2)
+    float32 per (slot, query head, split) with more than one split and
+    none with one, and its entry point refuses scratch shorter than
+    that instead of reading past it."""
+    from repro_torch.kernels import decode_attention as da
+    b, hq, hkv, d = 2, 4, 2, 64
+    need = da._scratch_floats(b, c, hq, d, window or 0, int(ring))
+    assert need == (b * hq * splits * (d + 2) if splits > 1 else 0)
+    if not need:
+        return
+    q, kc, vc = _decode_inputs(cuda, b, c, hq, hkv, d, torch.bfloat16, 1)
+    pos = torch.tensor([3, c - 1], device=cuda)
+    out = torch.empty_like(q)
+    part = torch.empty(need, dtype=torch.float32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for floats, ptr in ((need - 1, part.data_ptr()), (need, None)):
+        rc = da._entry()(q.data_ptr(), q.stride(0), 1, kc.data_ptr(),
+                         vc.data_ptr(), pos.data_ptr(), 1, 1,
+                         out.data_ptr(), ptr, floats, b, c, hq, hkv, d,
+                         window or 0, int(ring), d ** -0.5, 1, stream)
+        assert rc != 0, (floats, ptr)
+
+
 @pytest.mark.gpu
 def test_copy_on_write_fork_on_card_keeps_the_source_page(cuda):
     """A slot writing into a page it shares with the prefix cache forks
@@ -250,8 +432,10 @@ def test_moe_engine_on_card_goes_through_kernels(cuda, chunk):
     """granite-moe smoke on the card: the attention projections launch
     K1 (4 per layer; the 64×5 router has no bitmap tile and stays dense,
     as does the odd-vocabulary head), the expert stacks launch the
-    grouped kernel (3 per layer), per decode step and per prefill call;
-    in float32 the tokens equal the CPU engine's on the same weights."""
+    grouped kernel (3 per layer), per decode step and per prefill call,
+    and decode attention its kernel once per layer per decode step and
+    per chunk token of a prefill call; in float32 the tokens equal the
+    CPU engine's on the same weights."""
     cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
                               compute_dtype="float32")
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -271,7 +455,10 @@ def test_moe_engine_on_card_goes_through_kernels(cuda, chunk):
     calls = gpu.decode_steps + rep["prefill"]["calls"]
     assert (chunk == 0) == (rep["prefill"]["calls"] == 0)
     assert LAUNCHES == {**NONE, "bitmap_spmm": 4 * cfg.num_layers * calls,
-                        "bitmap_spmm_grouped": 3 * cfg.num_layers * calls}
+                        "bitmap_spmm_grouped": 3 * cfg.num_layers * calls,
+                        "decode_attention": cfg.num_layers * (
+                            gpu.decode_steps
+                            + chunk * rep["prefill"]["calls"])}
     assert [r.tokens for r in a] == [r.tokens for r in b]
 
 
@@ -809,8 +996,9 @@ def test_launches_on_two_streams_equal_serial_launches(cuda):
 def test_ssm_engine_on_card_goes_through_kernels(cuda, arch):
     """rwkv6 and jamba smoke on the card: every packed projection
     launches K1 and every group stack (mix_B, the MoE experts) K1g, once
-    per period per decode step, plus the head; in float32 the tokens
-    equal the CPU engine's on the same weights."""
+    per period per decode step, plus the head, and every attention block
+    decode attention's kernel; in float32 the tokens equal the CPU
+    engine's on the same weights."""
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     kw = dict(num_slots=4, max_len=48, sparsity=0.5, params=params)
@@ -832,6 +1020,8 @@ def test_ssm_engine_on_card_goes_through_kernels(cuda, arch):
         "bitmap_spmm": (per * layouts.count("stacked") + 1)
         * gpu.decode_steps,
         "bitmap_spmm_grouped": per * layouts.count("grouped")
+        * gpu.decode_steps,
+        "decode_attention": per * sum(b.mixer == "attn" for b in cfg.pattern)
         * gpu.decode_steps}
     assert [r.tokens for r in a] == [r.tokens for r in b]
 

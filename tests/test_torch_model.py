@@ -79,12 +79,21 @@ def test_activation(kind, dname):
            **_tol(dname, 1))
 
 
-@pytest.mark.parametrize("window,ring,cap", [(None, False, 12), (8, True, 8),
-                                             (5, False, 12)])
+# (window, ring, cap) at the smoke heads (4 query / 2 KV, D 16), then at
+# granite's grouping and head dim (g 3, D 64)
+ATTN_CASES = [pytest.param(w, ring, cap, heads,
+                           id=f"{w}-{ring}-{cap}" + ("" if heads[2] == 16
+                                                     else "-g3-d64"))
+              for heads in ((4, 2, 16), (6, 2, 64))
+              for w, ring, cap in ((None, False, 12), (8, True, 8),
+                                   (5, False, 12))]
+
+
+@pytest.mark.parametrize("window,ring,cap,heads", ATTN_CASES)
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
-def test_decode_attention_and_slot_write(window, ring, cap, dname):
+def test_decode_attention_and_slot_write(window, ring, cap, heads, dname):
     r = np.random.default_rng(3)
-    b, hq, hkv, d = 3, 4, 2, 16
+    b, (hq, hkv, d) = 3, heads
     q = r.standard_normal((b, 1, hq, d)).astype(np.float32)
     kc = r.standard_normal((b, cap, hkv, d)).astype(np.float32)
     vc = r.standard_normal((b, cap, hkv, d)).astype(np.float32)

@@ -97,13 +97,16 @@ def test_matmul_limit(smoke, case, dname):
 # Phase 1's check of the built variants (``check_variants``), rehearsed on
 # made-up SASS counts: it passes when every tensor-core variant of K2
 # (bf16, one per head dim) and of K3 / K4 (bf16 wide M) runs HMMA, and
-# fails when one does not or one is missing.
+# fails when one does not or one is missing; decode attention's variants
+# are listed with no tensor-core requirement.
 def _variants(k2_hmma=(8, 8, 8, 8)):
     names = [f"k1_bitmap_spmm_kernel_{i}" for i in range(8)]
     names += [f"k2_flash_attention_kernel_{i}" for i in range(8)]
     names += [f"k2_flash_attention_mma_{d}" for d in range(len(k2_hmma))]
     names += [f"block_sparse_mma_wide_{i}" for i in range(4)]
     names += [f"nm_spmm_mma_wide_{i}" for i in range(4)]
+    names += [f"decode_attention_split_{i}" for i in range(10)]
+    names += ["decode_attention_combine"]
     sass = {n: dict.fromkeys(("HMMA", "LDSM", "LDGSTS", "BAR"), 0)
             for n in names}
     for d, hmma in enumerate(k2_hmma):
@@ -118,7 +121,7 @@ def _variants(k2_hmma=(8, 8, 8, 8)):
 def test_phase1_check_passes_tensor_variants(smoke):
     seen = smoke.check_variants(*_variants())
     assert seen == {"K1 / K1g": (8, 0, 0), "K2": (12, 0, 4),
-                    "K3 / K4": (8, 0, 8)}
+                    "K3 / K4": (8, 0, 8), "decode attention": (11, 0, 0)}
 
 
 @pytest.mark.parametrize("k2_hmma", [(8, 8, 0, 8), (8, 8, 8)])
@@ -161,7 +164,8 @@ def test_phase5_times_the_fma_body_beside_the_tensor_path(smoke,
 def test_phase8_rehearsal_on_cpu(smoke, monkeypatch, capsys,
                                  one_torch_thread):
     """Phase 8 end to end on the CPU at smoke widths: the K1 / K1g / K2
-    wrappers replaced by plain versions that count launches,
+    and decode-attention wrappers replaced by plain versions that count
+    launches,
     ``ops.default_impl`` forced to "cuda", the timers, the profiler,
     memory stats and the no-dense-copy check stubbed.  Training, the
     parity and resume checks, K2 against ``scan_attention`` and serving
@@ -169,7 +173,7 @@ def test_phase8_rehearsal_on_cpu(smoke, monkeypatch, capsys,
     (7 projections x 2 layers + the head)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import LAUNCHES, bitmap_spmm, flash_attention
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import decode_attention, ops
 
     def counting(name, plain):
         def fake(*args, **kw):
@@ -185,6 +189,9 @@ def test_phase8_rehearsal_on_cpu(smoke, monkeypatch, capsys,
                                  ref.bitmap_spmm_grouped_ref))
     monkeypatch.setattr(flash_attention, "flash_attention",
                         counting("flash_attention", ref.attention_ref))
+    monkeypatch.setattr(decode_attention, "decode_attention",
+                        counting("decode_attention",
+                                 decode_attention.decode_attention_ref))
     monkeypatch.setattr(ops, "default_impl", lambda x: "cuda")
     monkeypatch.setattr(smoke, "sync", lambda: None)
     monkeypatch.setattr(smoke, "time_ms", lambda fn, reps: (fn(), 1.0)[1])
@@ -211,6 +218,10 @@ def test_phase8_rehearsal_on_cpu(smoke, monkeypatch, capsys,
     assert path["launches_per_step"] == 7 * cfg.num_layers + 1
     assert path["launches"] == path["launches_per_step"] * path[
         "decode_steps"] > 0
+    k5 = out["decode_attention"]
+    assert k5["launches_per_step"] == cfg.num_layers
+    assert k5["launches"] == k5["launches_per_step"] * k5["decode_steps"] \
+        + k5["launches_per_prefill_call"] * k5["prefill_calls"] > 0
     text = capsys.readouterr().out
     for arch in smoke.TRAIN_ARCHS:
         assert f"{arch}-smoke train step, card against CPU" in text
@@ -273,3 +284,51 @@ def test_train_flops_counts_olmo_at_full_width(smoke):
     assert f["model"] == 6 * n * t + 12 * attn
     head = 2048 * 50304
     assert f["remat"] == 2 * (n - head) * t + 4 * attn + 2 * head * t
+
+
+@pytest.mark.parametrize("broken", [False, True])
+def test_phase5b_decode_attention_rehearsal_on_cpu(smoke, monkeypatch,
+                                                   one_torch_thread, broken):
+    """Phase 5b on the CPU at small shapes, the decode-attention wrapper
+    replaced by a counting plain version, ``ops.default_impl`` forced to
+    "cuda", timers and the SDPA backend stubbed: it checks, counts two
+    launches per shape and times every shape (a ring with cold lines
+    among them); a kernel that drops the newest line of every slot fails
+    it."""
+    from repro_torch.kernels import LAUNCHES, decode_attention
+    plain = decode_attention.decode_attention_ref
+
+    def fake(q, kc, vc, pos, *, window=None, ring=False):
+        LAUNCHES["decode_attention"] += 1
+        if broken:
+            pos = pos - 1
+        return plain(q, kc, vc, pos, window=window, ring=ring)
+
+    def once(fn, reps):
+        fn()
+        return 1.0
+
+    monkeypatch.setattr(decode_attention, "decode_attention", fake)
+    for name in ("graph_ms", "time_ms"):
+        monkeypatch.setattr(smoke, name, once)
+    monkeypatch.setattr(smoke, "sync", lambda: None)
+    monkeypatch.setattr(smoke, "_sdpa_backend", lambda *a: "MATH")
+    monkeypatch.setattr(smoke, "_copies", lambda nbytes: 2)
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(ops, "default_impl", lambda x: "cuda")
+    cases = [("olmo-like", 4, 40, 4, 4, 32, None, False, 0, 39),
+             ("granite-like", 6, 24, 6, 2, 16, None, False, 3, 10),
+             ("gemma-like", 4, 16, 4, 2, 64, 16, True, 0, 63)]
+    gen, cpu = torch.Generator().manual_seed(0), torch.device("cpu")
+    if broken:
+        with pytest.raises(AssertionError, match="differs from plain"):
+            smoke.decode_attention_phase(None, None, None, cpu, gen,
+                                         cases=cases)
+        return
+    out = smoke.decode_attention_phase(None, None, None, cpu, gen,
+                                       cases=cases)
+    path, err, timings = out["decode_attention"]
+    assert path["launches"] == path["calls"] == 2 * len(cases)
+    assert err == 0.0 and [t["shape"] for t in timings] == [
+        c[0] for c in cases]
+    assert all(t["bound_ms"] > 0 and t["valid_lines"] > 0 for t in timings)

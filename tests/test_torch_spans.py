@@ -151,6 +151,20 @@ def test_decode_step_ranges_nest_and_count_the_layers(arch, tmp_path):
     assert names.count("kernel.bitmap_spmm") == len(counted) > 0
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_attention_kernel_range_nests_in_attn_decode(arch, tmp_path):
+    """``kernel.decode_attention`` is a program range, opened once per
+    attention layer in a decode step, inside that layer's
+    ``attn.decode``."""
+    assert "kernel.decode_attention" in counting.SPANS
+    eng = _engine(arch, False, tmp_path)
+    _, ranges = _profiled(eng.step)
+    kernel = [r for r in ranges if r[0] == "kernel.decode_attention"]
+    attn = [r for r in ranges if r[0] == "attn.decode"]
+    assert len(kernel) == len(attn) == eng.cfg.num_layers
+    assert all(_inside(r, attn) for r in kernel)
+
+
 def test_train_step_holds_grads_then_update_once_each():
     _, ranges = _profiled(_train)
     top = [r[0] for r in ranges if r[0].startswith("train.")]
